@@ -1,0 +1,134 @@
+"""The port on a CUDA card: the backup+link kernel against its plain
+version, and the env and a Gumbel search on the card against the same code
+on the CPU. Every test here needs a card and skips without one.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine without them:
+
+    python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from alphazero_reversi_tpu_torch.config import ModelConfig
+from alphazero_reversi_tpu_torch.env import bitboard as env
+from alphazero_reversi_tpu_torch.mcts import cuda_backup
+from alphazero_reversi_tpu_torch.mcts import gumbel
+from alphazero_reversi_tpu_torch.models import resnet
+
+pytestmark = pytest.mark.cuda
+
+ARGS = ("nodes", "actions", "incs", "link_nodes", "link_actions",
+        "link_slots", "do_link")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _backup_inputs(rng, batch, nodes_n, levels, links):
+    """Random arguments; with ``links == 1`` each game's path nodes are
+    distinct, as a single-leaf descent's are."""
+    p = levels * links
+    if links == 1:
+        nodes = np.stack([rng.permutation(nodes_n)[:p] for _ in range(batch)])
+    else:
+        nodes = rng.integers(0, nodes_n, (batch, p))
+    nodes = np.where(rng.random((batch, p)) < 0.75, nodes, -1)
+    s = cuda_backup.STRIDE
+    return dict(
+        stats=(rng.integers(0, 50, (batch, nodes_n * s)) * 1024.0
+               + rng.normal(0, 1, (batch, nodes_n * s))).astype(np.float32),
+        nodes=nodes.astype(np.int32),
+        actions=rng.integers(0, 65, (batch, p)).astype(np.int32),
+        incs=rng.normal(0, 1, (batch, p)).astype(np.float32),
+        link_nodes=rng.integers(0, nodes_n, (batch, links)).astype(np.int32),
+        link_actions=rng.integers(0, 65, (batch, links)).astype(np.int32),
+        link_slots=rng.integers(1, nodes_n, (batch, links)).astype(np.int32),
+        do_link=rng.random((batch, links)) < 0.8)
+
+
+@pytest.mark.parametrize("links", [1, 4])
+def test_backup_kernel_matches_plain_version(card, links):
+    """At the flagship's last-stage shape (B=1024, N=33, 24 levels): equal
+    to the plain version on the CPU bit for bit (both add in path order),
+    and to the plain version on the card exactly at L=1 and within 1e-6 at
+    L=4 (its scatter_add_ adds colliding cells in atomic order)."""
+    d = _backup_inputs(np.random.default_rng(links), 1024, 33, 24, links)
+    cpu = {k: torch.from_numpy(v) for k, v in d.items()}
+    gpu = {k: v.to(card) for k, v in cpu.items()}
+    got = gpu["stats"].clone()
+    before = cuda_backup.LAUNCHES
+    cuda_backup.backup_and_link(got, *(gpu[k] for k in ARGS))
+    torch.cuda.synchronize()
+    assert cuda_backup.LAUNCHES == before + 1
+    want_cpu = cpu["stats"].clone()
+    cuda_backup.backup_and_link_reference(want_cpu, *(cpu[k] for k in ARGS))
+    assert torch.equal(got.cpu(), want_cpu)
+    want_gpu = gpu["stats"].clone()
+    cuda_backup.backup_and_link_reference(want_gpu, *(gpu[k] for k in ARGS))
+    if links == 1:
+        assert torch.equal(got, want_gpu)
+    else:
+        torch.testing.assert_close(got, want_gpu, rtol=1e-6, atol=1e-6)
+
+
+def test_env_on_card_matches_cpu(card):
+    """int64 shifts, masks and popcounts behave the same on the card: random
+    games in both rule modes give bit-identical states and outputs."""
+    rng = np.random.default_rng(0)
+    for compat in (False, True):
+        sc, sg = env.initial_state((256,)), env.initial_state((256,), card)
+        for _ in range(64):
+            mask = env.legal_action_mask(sc, compat=compat)
+            assert torch.equal(mask, env.legal_action_mask(
+                sg, compat=compat).cpu())
+            assert torch.equal(env.canonical_planes(sc, compat=compat),
+                               env.canonical_planes(sg, compat=compat).cpu())
+            act = torch.from_numpy(np.array(
+                [rng.choice(np.flatnonzero(m)) if m.any() else 64
+                 for m in mask.numpy()]))
+            sc, vc = env.step(sc, act, compat=compat)
+            sg, vg = env.step(sg, act.to(card), compat=compat)
+            assert torch.equal(vc, vg.cpu())
+            for x, y in zip(sc, sg):
+                assert torch.equal(x, y.cpu())
+        assert sc.done.all()
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_gumbel_search_on_card_matches_cpu(card, warm):
+    """A float32 search through the kernel equals the CPU search through
+    the plain version (actions and visits exact)."""
+    torch.manual_seed(0)
+    net = resnet.build_network(ModelConfig(num_res_blocks=1, num_filters=16,
+                                           compute_dtype="float32"))
+    roots = env.initial_state((64,))
+    draw = torch.from_numpy(np.random.default_rng(1).gumbel(
+        size=(64, 65)).astype(np.float32))
+    warm_root = None
+    if warm:
+        legal = env.legal_action_mask(roots)
+        wv = torch.where(legal, torch.randint(0, 3, (64, 65)), 0).float()
+        warm_root = (wv, wv * 0.3)
+    kw = dict(num_simulations=16, max_considered_actions=8, max_depth=8,
+              num_stages=2)
+    ref = gumbel.run_gumbel_search(net, roots, gumbel=draw,
+                                   warm_root=warm_root, device="cpu", **kw)
+    before = cuda_backup.LAUNCHES
+    got = gumbel.run_gumbel_search(
+        net.to(card), env.EnvState(*(t.to(card) for t in roots)),
+        gumbel=draw.to(card), device=card,
+        warm_root=None if warm_root is None else tuple(
+            t.to(card) for t in warm_root), **kw)
+    assert cuda_backup.LAUNCHES == before + 16
+    assert torch.equal(got.chosen_action.cpu(), ref.chosen_action)
+    assert torch.equal(got.visit_counts.cpu(), ref.visit_counts)
+    torch.testing.assert_close(got.action_probs.cpu(), ref.action_probs,
+                               rtol=0, atol=1e-5)
