@@ -76,9 +76,10 @@ def expand_and_backup(net, trees: tree_lib.Tree, pn: torch.Tensor,
     ``leaf_acts`` are ``[B, L]`` (``leaf_acts < 0``: the lane ends without
     expansion); ``eval_rows`` ``[B, L, K]`` holds each lane's evaluation
     target row (the leaf's parent; the leaf state is made here by stepping).
+    The backup, links and root totals are one ``tree_lib.round_backup``:
+    one kernel launch on the card.
     """
     batch, L = leaves.shape
-    levels = pn.shape[1] // L
 
     base_state = tree_lib.unpack_state(
         eval_rows.reshape(batch * L, -1)[:, A:])
@@ -93,29 +94,9 @@ def expand_and_backup(net, trees: tree_lib.Tree, pn: torch.Tensor,
         tree_lib.make_row(eval_state, prior_c, legal_c, value_c)
         .reshape(batch, L, -1))
 
-    eval_tomove = eval_state.to_move.reshape(batch, L)
-    value_bl = value_c.reshape(batch, L)
-    # entry j belongs to descent j // levels
-    et_expand = eval_tomove.repeat_interleave(levels, dim=1)
-    v_expand = value_bl.repeat_interleave(levels, dim=1)
-    sign = torch.where(pt == et_expand.float(), 1.0, -1.0)
-
-    # in-round duplicate (leaf, action) picks back up again but link once
-    same = ((leaves[:, :, None] == leaves[:, None, :])
-            & (leaf_acts[:, :, None] == leaf_acts[:, None, :]))
-    earlier = torch.ones(L, L, dtype=torch.bool,
-                         device=leaves.device).tril(-1)
-    is_dup = (same & earlier).any(-1)
-    do_link = (leaf_acts >= 0) & ~is_dup
-    slots = slot0 + torch.arange(L, device=leaves.device)
-
-    trees = tree_lib.backup_and_link(
-        trees, pn, pa, sign * v_expand, leaves, leaf_acts.clamp_min(0),
-        slots.expand(batch, L), do_link)
-    rsign = torch.where(eval_tomove == root_to_move[:, None], 1.0, -1.0)
-    return trees._replace(
-        root_visit=trees.root_visit + L,
-        root_vsum=trees.root_vsum + (rsign * value_bl).sum(-1))
+    return tree_lib.round_backup(
+        trees, pn, pa, pt, eval_state.to_move.reshape(batch, L),
+        value_c.reshape(batch, L), leaves, leaf_acts, slot0, root_to_move)
 
 
 def probs_with_temperature(visit_counts: torch.Tensor, temperature

@@ -16,7 +16,7 @@ cell, so trees compare exactly across the two packages:
 Values in ``vsum[n, a]`` are from the perspective of the player to move at
 node ``n``. Unlike the JAX package, trees are updated in place where that
 saves a copy (``init_root``, ``write_children_rows``, ``backup_and_link``,
-``seed_root_stats``); each says so.
+``round_backup``, ``seed_root_stats``); each says so.
 """
 from __future__ import annotations
 
@@ -153,6 +153,31 @@ def backup_and_link(tree: Tree, nodes: torch.Tensor, actions: torch.Tensor,
         c(value_incs, torch.float32), c(link_nodes, torch.int32),
         c(link_actions, torch.int32), c(link_slots, torch.int32),
         c(do_link, torch.bool))
+    return tree
+
+
+def round_backup(tree: Tree, pn: torch.Tensor, pa: torch.Tensor,
+                 pt: torch.Tensor, eval_tomove: torch.Tensor,
+                 value: torch.Tensor, leaves: torch.Tensor,
+                 leaf_acts: torch.Tensor, slot0: int,
+                 root_to_move: torch.Tensor) -> Tree:
+    """A simulation round's whole backup, in place on ``tree.stats``,
+    ``tree.root_visit`` and ``tree.root_vsum``.
+
+    ``pn``/``pa``/``pt`` are the ``[B, L*levels]`` lane-major path arrays
+    (node int64 / action int64 / to-move f32 per level, ``node < 0`` on
+    padding); ``eval_tomove`` (int32) and ``value`` (f32) are each lane's
+    evaluated to-move and value, ``leaves``/``leaf_acts`` (int64) its leaf
+    edge (``leaf_act < 0``: no expansion), all ``[B, L]``. Each path entry
+    backs up ``±value`` (sign: its level's to-move against the evaluated
+    one), each expanded lane ``l`` links slot ``slot0 + l`` unless an
+    earlier lane picked the same edge, and the root counts ``L`` visits.
+    CUDA tensors take one launch of the hand-written kernel
+    (``cuda_backup.round_backup``); CPU tensors its plain version.
+    """
+    cuda_backup.round_backup(tree.stats, pn, pa, pt, eval_tomove, value,
+                             leaves, leaf_acts, slot0, root_to_move,
+                             tree.root_visit, tree.root_vsum)
     return tree
 
 

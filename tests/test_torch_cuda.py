@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the backup+link kernel against its plain
-version, and the env and a Gumbel search on the card against the same code
-on the CPU. Every test here needs a card and skips without one.
+"""The port on a CUDA card: the backup+link kernel's two entry points
+against their plain versions, and the env and a Gumbel search on the card
+against the same code on the CPU. Every test here needs a card and skips
+without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -16,6 +17,7 @@ from alphazero_reversi_tpu_torch.env import bitboard as env
 from alphazero_reversi_tpu_torch.mcts import cuda_backup
 from alphazero_reversi_tpu_torch.mcts import gumbel
 from alphazero_reversi_tpu_torch.models import resnet
+from torch_round_inputs import ROUND_ARGS, round_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -79,6 +81,59 @@ def test_backup_kernel_matches_plain_version(card, links):
         torch.testing.assert_close(got, want_gpu, rtol=1e-6, atol=1e-6)
 
 
+def _round(d, device, fn):
+    """Run ``fn`` (the kernel's wrapper or the plain version) on copies of
+    ``d`` on ``device``; return (stats, root_visit, root_vsum)."""
+    t = {k: torch.from_numpy(np.array(v)).to(device) for k, v in d.items()
+         if k != "slot0"}
+    fn(t["stats"], *(t[k] for k in ROUND_ARGS), d["slot0"],
+       t["root_to_move"], t["root_visit"], t["root_vsum"])
+    return t["stats"], t["root_visit"], t["root_vsum"]
+
+
+@pytest.mark.parametrize("links,levels,odd", [
+    (1, 24, False), (4, 8, False), (4, 24, False), (4, 8, True),
+    (4, 24, True)])
+def test_round_backup_kernel_matches_plain_version(card, links, levels, odd):
+    """azr_round_backup at the flagship's last-stage shape (B=1024, N=33):
+    bit for bit equal to the plain version on the CPU (same add order,
+    lanes summed in order) at L=1, at L=4 with in-round duplicates and
+    shared root edges, and with nodes past the tree and actions outside
+    [0, 65); P=24 and P=32 take the kernel's one-step path where the
+    actions allow it, P=96 its stepwise path. At L=1 it also equals the
+    plain version on the card, where no float cell takes two adds."""
+    d = round_inputs(np.random.default_rng(links + levels + odd), 1024, 33,
+                     levels, links, odd=odd)
+    before = cuda_backup.ROUND_LAUNCHES
+    got = _round(d, card, cuda_backup.round_backup)
+    torch.cuda.synchronize()
+    assert cuda_backup.ROUND_LAUNCHES == before + 1
+    for x, y in zip(got, _round(d, "cpu", cuda_backup.round_backup_reference)):
+        assert torch.equal(x.cpu(), y)
+    if links == 1:
+        want = _round(d, card, cuda_backup.round_backup_reference)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_round_backup_graph_replay_matches_eager(card):
+    """One azr_round_backup launch captured in a CUDA graph and replayed
+    gives what the eager launch gives."""
+    d = round_inputs(np.random.default_rng(7), 1024, 33, 24, 1)
+    eager = _round(d, card, cuda_backup.round_backup)
+    t = {k: torch.from_numpy(np.array(v)).to(card) for k, v in d.items()
+         if k != "slot0"}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cuda_backup.round_backup(
+            t["stats"], *(t[k] for k in ROUND_ARGS), d["slot0"],
+            t["root_to_move"], t["root_visit"], t["root_vsum"])
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip((t["stats"], t["root_visit"], t["root_vsum"]), eager):
+        assert torch.equal(x, y)
+
+
 def test_env_on_card_matches_cpu(card):
     """int64 shifts, masks and popcounts behave the same on the card: random
     games in both rule modes give bit-identical states and outputs."""
@@ -104,8 +159,9 @@ def test_env_on_card_matches_cpu(card):
 
 @pytest.mark.parametrize("warm", [False, True])
 def test_gumbel_search_on_card_matches_cpu(card, warm):
-    """A float32 search through the kernel equals the CPU search through
-    the plain version (actions and visits exact)."""
+    """A float32 search through the kernel (one azr_round_backup launch per
+    round) equals the CPU search through the plain version (actions and
+    visits exact)."""
     torch.manual_seed(0)
     net = resnet.build_network(ModelConfig(num_res_blocks=1, num_filters=16,
                                            compute_dtype="float32"))
@@ -121,13 +177,14 @@ def test_gumbel_search_on_card_matches_cpu(card, warm):
               num_stages=2)
     ref = gumbel.run_gumbel_search(net, roots, gumbel=draw,
                                    warm_root=warm_root, device="cpu", **kw)
-    before = cuda_backup.LAUNCHES
+    before = (cuda_backup.LAUNCHES, cuda_backup.ROUND_LAUNCHES)
     got = gumbel.run_gumbel_search(
         net.to(card), env.EnvState(*(t.to(card) for t in roots)),
         gumbel=draw.to(card), device=card,
         warm_root=None if warm_root is None else tuple(
             t.to(card) for t in warm_root), **kw)
-    assert cuda_backup.LAUNCHES == before + 16
+    assert (cuda_backup.LAUNCHES, cuda_backup.ROUND_LAUNCHES) == (
+        before[0], before[1] + 16)
     assert torch.equal(got.chosen_action.cpu(), ref.chosen_action)
     assert torch.equal(got.visit_counts.cpu(), ref.visit_counts)
     torch.testing.assert_close(got.action_probs.cpu(), ref.action_probs,

@@ -1,6 +1,8 @@
 """Parity of the port's packed tree (``alphazero_reversi_tpu_torch.mcts.tree``)
-and of the backup+link kernel's plain version with the JAX package. The
-kernel itself is held against the plain version in test_torch_cuda.py."""
+and of the backup+link kernel's plain versions (the JAX-shaped
+``backup_and_link`` and the round tail ``round_backup``) with the JAX
+package. The kernel itself is held against the plain versions in
+test_torch_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +14,7 @@ from alphazero_reversi_tpu_torch.env import bitboard as tenv
 from alphazero_reversi_tpu_torch.mcts import cuda_backup
 from alphazero_reversi_tpu_torch.mcts import tree as ttree
 from torch_parity import random_positions, to_jax_state
+from torch_round_inputs import ROUND_ARGS, round_inputs
 
 A, S, K = ttree.A, ttree.STRIDE, ttree.K
 
@@ -175,6 +178,110 @@ def test_cpu_tensors_take_the_plain_version():
     before = cuda_backup.LAUNCHES
     _torch_backup(d)
     assert cuda_backup.LAUNCHES == before
+
+
+def _torch_round_backup(d):
+    t = {k: torch.from_numpy(np.array(v)) for k, v in d.items()
+         if k != "slot0"}
+    tree = ttree.Tree(rows=torch.zeros(0), stats=t["stats"],
+                      root_visit=t["root_visit"], root_vsum=t["root_vsum"])
+    out = ttree.round_backup(tree, *(t[k] for k in ROUND_ARGS), d["slot0"],
+                             t["root_to_move"])
+    return out.stats.numpy(), out.root_visit.numpy(), out.root_vsum.numpy()
+
+
+def _jax_round_backup(d):
+    """numpy transcription of JAX search.py:167-193 around JAX
+    ``tree.backup_and_link`` (int32 indices, as JAX holds them)."""
+    leaves, acts = d["leaves"], d["leaf_acts"]
+    b, L = leaves.shape
+    levels = d["pn"].shape[1] // L
+    et_expand = np.repeat(d["eval_tomove"], levels, axis=1)
+    v_expand = np.repeat(d["value"], levels, axis=1)
+    sign = np.where(d["pt"] == et_expand.astype(np.float32), 1.0, -1.0)
+    same = ((leaves[:, :, None] == leaves[:, None, :])
+            & (acts[:, :, None] == acts[:, None, :]))
+    earlier = np.tril(np.ones((L, L), bool), k=-1)[None]
+    do_link = (acts >= 0) & ~(same & earlier).any(-1)
+    slots = d["slot0"] + np.arange(L, dtype=np.int32)[None]
+    stats = _jax_backup(dict(
+        stats=d["stats"], nodes=d["pn"].astype(np.int32),
+        actions=d["pa"].astype(np.int32),
+        incs=(sign * v_expand).astype(np.float32),
+        link_nodes=leaves.astype(np.int32),
+        link_actions=np.maximum(acts, 0).astype(np.int32),
+        link_slots=np.broadcast_to(slots, (b, L)).astype(np.int32),
+        do_link=do_link))
+    rsign = np.where(d["eval_tomove"] == d["root_to_move"][:, None], 1.0,
+                     -1.0).astype(np.float32)
+    return (stats, d["root_visit"] + np.int32(L),
+            d["root_vsum"] + (rsign * d["value"]).sum(-1))
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("links", [1, 4])
+def test_round_backup_reference_matches_jax(links, seed):
+    """The round tail's plain version (what ``round_backup`` runs on the
+    CPU) against JAX: stats and root visits exact, with in-round duplicate
+    picks and shared root edges at L=4; root_vsum exact at L=1 and within
+    1e-6 relative at L=4 (numpy sums the lanes in another order). Shapes
+    are those of the backup tests above, so JAX compiles nothing new."""
+    rng = np.random.default_rng(30 + 2 * links + seed)
+    n, levels = (33, 8) if links == 1 else (9, 6)
+    d = round_inputs(rng, 8, n, levels, links)
+    got = _torch_round_backup(d)
+    want = _jax_round_backup(d)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    if links == 1:
+        np.testing.assert_array_equal(got[2], want[2])
+    else:
+        np.testing.assert_allclose(got[2], want[2], rtol=1e-6)
+
+
+def _round_args():
+    return dict(stats=torch.zeros(2, S), pn=torch.zeros(2, 6, dtype=torch.long),
+                pa=torch.zeros(2, 6, dtype=torch.long), pt=torch.zeros(2, 6),
+                eval_tomove=torch.ones(2, 2, dtype=torch.int32),
+                value=torch.zeros(2, 2),
+                leaves=torch.zeros(2, 2, dtype=torch.long),
+                leaf_acts=torch.zeros(2, 2, dtype=torch.long), slot0=1,
+                root_to_move=torch.ones(2, dtype=torch.int32),
+                root_visit=torch.zeros(2, dtype=torch.int32),
+                root_vsum=torch.zeros(2))
+
+
+@pytest.mark.parametrize("field,bad", [
+    ("stats", torch.zeros(2, S, dtype=torch.float64)),
+    ("pn", torch.zeros(2, 6, dtype=torch.int32)),
+    ("pa", torch.zeros(2, 5, dtype=torch.long)),
+    ("pt", torch.zeros(2, 6, dtype=torch.float64)),
+    ("pn", torch.zeros(2, 5, dtype=torch.long)),
+    ("eval_tomove", torch.ones(2, 2, dtype=torch.long)),
+    ("value", torch.zeros(2, 3)),
+    ("leaves", torch.zeros(2, 4, dtype=torch.long)[:, ::2]),
+    ("leaf_acts", torch.zeros(3, 2, dtype=torch.long)),
+    ("root_to_move", torch.ones(2, 1, dtype=torch.int32)),
+    ("root_visit", torch.zeros(2)),
+    ("root_vsum", torch.zeros(2, device="meta")),
+])
+def test_round_backup_rejects_bad_arguments(field, bad):
+    """Bad arguments raise even after good ones of the same shapes passed
+    (validation is cached per signature), and launch nothing."""
+    cuda_backup.round_backup(**_round_args())
+    args = _round_args()
+    args[field] = bad
+    before = cuda_backup.ROUND_LAUNCHES
+    with pytest.raises(ValueError):
+        cuda_backup.round_backup(**args)
+    assert cuda_backup.ROUND_LAUNCHES == before
+
+
+def test_round_backup_cpu_tensors_take_the_plain_version():
+    d = round_inputs(np.random.default_rng(0), 4, 5, 3, 2)
+    before = (cuda_backup.LAUNCHES, cuda_backup.ROUND_LAUNCHES)
+    _torch_round_backup(d)
+    assert (cuda_backup.LAUNCHES, cuda_backup.ROUND_LAUNCHES) == before
 
 
 def _random_tree(rng, b, n):
