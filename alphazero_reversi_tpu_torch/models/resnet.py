@@ -9,13 +9,20 @@ parameter names, same numerics where it matters:
   float32 parameters cast at use, and the heads' dense layers in float32;
 * BatchNorm is evaluated as Flax does: in float32, ``(x - mean) *
   (rsqrt(var + eps) * scale) + bias``, eps 1e-5, then cast to the compute
-  dtype. Only inference is ported here (running averages);
+  dtype. In eval mode it uses the running averages; in train mode
+  (``apply_train``) it does what ``nn.BatchNorm(use_running_average=False)``
+  does, which ``torch.nn.BatchNorm2d`` does not: float32 batch statistics
+  over N, H, W with the fast variance ``mean(x^2) - mean(x)^2`` clipped at
+  0, normalisation by that biased variance, and running averages updated
+  with momentum 0.99 (``ra = 0.99 ra + 0.01 batch``, biased variance);
+* dropout draws its mask from an explicit ``torch.Generator``, as Flax's
+  ``nn.Dropout`` keeps ``x / (1 - rate)`` where a Bernoulli draw says so;
 * the head activations are flattened in NHWC order, so the Flax Dense
   kernels carry over by transposition alone (``models.weights``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,20 +31,33 @@ from torch import nn
 from ..config import ModelConfig
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.99  # Flax's convention: weight of the old running average
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class _BatchNorm(nn.BatchNorm2d):
-    """Inference BatchNorm with the Flax evaluation order (float32)."""
+    """BatchNorm with Flax's numerics (float32). Eval mode normalises with
+    the running averages; train mode with the batch's statistics, and it
+    updates the running averages in place (module docstring)."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         shape = (1, -1, 1, 1)
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        xf = x.float()
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                for run, batch in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                    run.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * batch)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
 
 
@@ -90,7 +110,6 @@ class AlphaZeroNet(nn.Module):
         self.stem_bn = norm(f)
         self.res = nn.ModuleList(ResBlock(f, bn)
                                  for _ in range(cfg.num_res_blocks))
-        self.dropout = nn.Dropout(cfg.dropout)
         self.policy_conv = _conv(f, pc, 1, not bn)
         self.policy_bn = norm(pc)
         self.policy_fc = nn.Linear(pc * board * board, board * board + 1)
@@ -104,13 +123,26 @@ class AlphaZeroNet(nn.Module):
     def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
 
-    def forward(self, planes: torch.Tensor
+    def _dropout(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        rate = self.cfg.dropout
+        if not self.training or rate <= 0.0:
+            return x
+        if rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - rate
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+    def forward(self, planes: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = planes.permute(0, 3, 1, 2).to(self.dtype)
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         for block in self.res:
             x = block(x)
-        x = self.dropout(x)
+        x = self._dropout(x, generator)
         p = F.relu(self.policy_bn(self.policy_conv(x)))
         logits = self.policy_fc(self._flatten_nhwc(p))
         v = F.relu(self.value_bn(self.value_conv(x)))
@@ -120,7 +152,8 @@ class AlphaZeroNet(nn.Module):
 
 
 def build_network(cfg: ModelConfig) -> AlphaZeroNet:
-    """The net for ``cfg``, in eval mode (this slice ports inference only)."""
+    """The net for ``cfg``, in eval mode (``net.train()`` for
+    ``apply_train``)."""
     return AlphaZeroNet(cfg).eval()
 
 
@@ -132,6 +165,24 @@ def apply_eval(net: AlphaZeroNet, planes: torch.Tensor
     if net.training:
         raise ValueError("apply_eval needs the net in eval mode (net.eval())")
     return net(planes)
+
+
+def apply_train(net: AlphaZeroNet, planes: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                           Dict[str, torch.Tensor]]:
+    """Training forward pass (the net in train mode): BatchNorm on batch
+    statistics, dropout drawn from ``generator``. Returns ``((logits,
+    value), batch_stats)``: ``batch_stats`` maps each BatchNorm buffer name
+    (``<layer>.running_mean`` / ``.running_var``) to the net's running
+    average, updated in place by this pass (empty for a BN-free net)."""
+    if not net.training:
+        raise ValueError("apply_train needs the net in train mode "
+                         "(net.train())")
+    out = net(planes, generator=generator)
+    stats = {name: buf for name, buf in net.named_buffers()
+             if name.endswith((".running_mean", ".running_var"))}
+    return out, stats
 
 
 def masked_policy(logits: torch.Tensor, legal_mask: torch.Tensor

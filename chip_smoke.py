@@ -312,8 +312,9 @@ def check_round_kernel(results: dict) -> None:
         bound_bytes=nbytes)
 
 
-def flagship_selfplay(results: dict) -> None:
-    """One flagship self-play batch through the port's public entry point."""
+def flagship_selfplay(results: dict, carry: dict) -> None:
+    """One flagship self-play batch through the port's public entry point;
+    the config, net and trajectory go on to ``flagship_training``."""
     from alphazero_reversi_tpu_torch import selfplay
     from alphazero_reversi_tpu_torch.config import Config
     from alphazero_reversi_tpu_torch.env import bitboard as env
@@ -372,6 +373,7 @@ def flagship_selfplay(results: dict) -> None:
         if not torch.equal(x, y.cpu()):
             raise AssertionError("replayed final state differs")
     positions = int(valid.sum())
+    carry.update(cfg=cfg, net=net, traj=traj, kw=kw)
     results["selfplay"] = dict(
         config="configs/flagship_run.json", games=games,
         move_slots=int(traj.actions.shape[0]), live_slots=live_slots,
@@ -418,6 +420,208 @@ def cuda_matches_cpu(results: dict) -> None:
                                   actions_equal=True, policy_max_abs=policy_err)
 
 
+def _sync_s(t0: float) -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _check_relabel(traj, relabelled, stats: dict, cfg, rng) -> int:
+    """The relabel had candidates and solved some; every value target is in
+    {-1, 0, 1}; at 64 solved positions the new label is the sign of a
+    full-window solve. Returns the number of positions checked."""
+    from alphazero_reversi_tpu_torch import selfplay
+    from alphazero_reversi_tpu_torch.env import endgame
+
+    if stats["candidates"] == 0 or stats["solved"] == 0:
+        raise AssertionError(f"relabel solved nothing: {stats}")
+    valid = traj.valid.cpu().numpy()
+    value = relabelled.value.cpu().numpy()
+    if not set(np.unique(value[valid])) <= {-1.0, 0.0, 1.0}:
+        raise AssertionError("a relabelled value is outside {-1, 0, 1}")
+    mine, theirs = (x.cpu().numpy() for x in
+                    selfplay.pack_stone_boards(traj.planes))
+    to_move = traj.to_move.cpu().numpy()
+    empties = 64 - selfplay._popcount64_np((mine | theirs).view(np.uint64))
+    # positions are solved empties-ascending: those below the deepest
+    # solved count were all solved, even if the budget cut the rest
+    limit = stats["max_empties_solved"] - (stats["skipped"] > 0)
+    ts, bs = np.nonzero(valid & (empties <= limit))
+    pick = rng.choice(len(ts), min(64, len(ts)), replace=False)
+    solver = endgame.EndgameSolver(compat=cfg.env_compat)
+    for t, b in zip(ts[pick], bs[pick]):
+        black, white = (mine[t, b], theirs[t, b]) if to_move[t, b] == 1 \
+            else (theirs[t, b], mine[t, b])
+        exact = solver.solve(int(black), int(white), int(to_move[t, b]))
+        if np.sign(exact.value) != value[t, b]:
+            raise AssertionError(f"relabel at ({t}, {b}) is {value[t, b]}, "
+                                 f"a full solve gives {exact.value}")
+    return len(pick)
+
+
+def _learner_tensors(learner):
+    yield from learner.net.parameters()
+    yield from learner.net.buffers()
+    for state in learner.state.optimizer.state.values():
+        # AdamW keeps its step count on the host unless capturable
+        yield from (v for k, v in state.items() if k != "step")
+
+
+def flagship_training(results: dict, carry: dict) -> None:
+    """The training half of the flagship iteration on the card, in the order
+    the JAX pipeline runs it: relabel the self-play batch with the exact
+    solver (<= 12 empties, 60 s budget), save and reload it, insert it into
+    a 200,000-row replay buffer, run ceil(positions / 128) SGD steps
+    rounded up to whole chunks of 64, hand the learner's weights and
+    running averages to the self-play net, and play one more move."""
+    import math
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import learner as learner_lib
+    from alphazero_reversi_tpu_torch import replay, selfplay
+
+    cfg, net, traj, kw = (carry[k] for k in ("cfg", "net", "traj", "kw"))
+    sp, tc = cfg.self_play, cfg.training
+    rng = np.random.default_rng(cfg.seed)
+
+    t0 = time.perf_counter()
+    relabelled, rstats = selfplay.relabel_exact_values_with_stats(
+        traj, sp.exact_value_empties, compat=cfg.env_compat,
+        budget_s=sp.exact_value_budget_s or None)
+    relabel_s = _sync_s(t0)
+    if relabelled.value.device.type != "cuda":
+        raise AssertionError("relabelled values left the card")
+    checked = _check_relabel(traj, relabelled, rstats, cfg, rng)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = selfplay.save_trajectory(relabelled, tmp, "it000000_b0")
+        save_s = time.perf_counter() - t0
+        loaded = selfplay.load_trajectory_arrays(path)
+        save_bytes = Path(path).stat().st_size
+    for name, arr in loaded.items():
+        want = getattr(relabelled, name).cpu().numpy()
+        if not np.array_equal(arr, want):
+            raise AssertionError(f"saved trajectory differs in {name}")
+
+    planes, policy, value, valid = selfplay.flatten_trajectory(relabelled)
+    positions = int(valid.sum())
+    buf = replay.create(tc.replay_capacity)
+    t0 = time.perf_counter()
+    buf = replay.add(buf, planes, policy, value, valid)
+    add_s = _sync_s(t0)
+    if buf.size != positions:
+        raise AssertionError(f"buffer holds {buf.size}, expected {positions}")
+    if any(t.device.type != "cuda" for t in buf[:3]):
+        raise AssertionError("the replay buffer is not on the card")
+
+    chunk = max(1, tc.steps_per_dispatch)
+    n_chunks = math.ceil(max(1, math.ceil(positions / tc.batch_size))
+                         / chunk)
+    learner = learner_lib.Learner(net, tc)
+    learner.set_iteration(0)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    auxes = [learner.steps(buf, gen, chunk, tc.batch_size)
+             for _ in range(n_chunks)]
+    sgd_s = _sync_s(t0)
+    if any(t.device.type != "cuda" for t in _learner_tensors(learner)):
+        raise AssertionError("a learner tensor is not on the card")
+    host = [{k: v.item() for k, v in a.items()} for a in auxes]
+    if not all(np.isfinite(v) for a in host for v in a.values()):
+        raise AssertionError(f"non-finite loss or grad_norm: {host}")
+    if not host[-1]["loss"] < host[0]["loss"]:
+        raise AssertionError(f"the last chunk's mean loss "
+                             f"{host[-1]['loss']} is not below the first's "
+                             f"{host[0]['loss']}")
+
+    learner.copy_to(net)
+    got = net.state_dict()
+    for name, t in learner.state_dict().items():
+        if not torch.equal(got[name], t):
+            raise AssertionError(f"self-play net differs from the learner "
+                                 f"in {name}")
+    move = selfplay.play_games(net, num_games=sp.num_parallel_games,
+                               generator=gen, **{**kw, "max_moves": 1})
+    if not (torch.isfinite(move.policy).all()
+            and move.valid.all() and (move.actions >= 0).all()):
+        raise AssertionError("the trained net's move is not a legal search "
+                             "result")
+
+    steps = n_chunks * chunk
+    results["training"] = dict(
+        relabel={**rstats, "wall_s": relabel_s, "checked_full_solves":
+                 checked},
+        save_s=save_s, save_bytes=save_bytes, replay_add_s=add_s,
+        replay_size=buf.size, replay_capacity=tc.replay_capacity,
+        sgd_steps=steps, batch_size=tc.batch_size, sgd_s=sgd_s,
+        steps_per_s=steps / sgd_s, samples_per_s=steps * tc.batch_size
+        / sgd_s, first_chunk=host[0], last_chunk=host[-1],
+        chunk_losses=[a["loss"] for a in host],
+        iteration_s_without_gate=results["selfplay"]["seconds"] + relabel_s
+        + save_s + add_s + sgd_s)
+
+
+def learner_cuda_matches_cpu(results: dict, carry: dict) -> None:
+    """The learner on the card against the learner on the CPU: a small
+    float32 net (2x32), TF32 off, 3 steps on the same batches from the
+    flagship trajectory. Losses and grad_norm within 1e-4 relative; BN
+    running averages within 1e-4; parameters within 1e-5, except entries
+    whose gradient fell below 1e-6 in some step, where Adam's step
+    (~lr * g / (|g| + 1e-8)) turns on the rounding of g: there at most
+    2 * lr per step."""
+    from alphazero_reversi_tpu_torch import learner as learner_lib
+    from alphazero_reversi_tpu_torch import selfplay
+    from alphazero_reversi_tpu_torch.models import resnet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = carry["cfg"]
+    mcfg = copy.deepcopy(cfg.model)
+    mcfg.compute_dtype, mcfg.num_res_blocks, mcfg.num_filters = \
+        "float32", 2, 32
+    torch.manual_seed(3)
+    net = resnet.build_network(mcfg)
+    states = {d: learner_lib.create_train_state(net, cfg.training, device=d)
+              for d in ("cuda", "cpu")}
+    planes, policy, value, valid = selfplay.flatten_trajectory(carry["traj"])
+    rows = torch.nonzero(valid).squeeze(1).cpu().numpy()
+    rng = np.random.default_rng(4)
+    steps, lr = 3, cfg.training.learning_rate
+    small = {}
+    max_aux = 0.0
+    for _ in range(steps):
+        idx = torch.from_numpy(rng.choice(rows, cfg.training.batch_size))
+        batch = [x[idx.cuda()] for x in (planes, policy, value)]
+        aux = {d: learner_lib.train_step(
+            st, *(x.to(d) for x in batch)) for d, st in states.items()}
+        for k, v in aux["cpu"].items():
+            rel = abs(aux["cuda"][k].item() - v.item()) / abs(v.item())
+            max_aux = max(max_aux, rel)
+            if rel > 1e-4:
+                raise AssertionError(f"card vs CPU {k}: relative {rel}")
+        for name, p in states["cpu"].net.named_parameters():
+            small[name] = small.get(name, False) | (p.grad.abs() < 1e-6)
+    cpu = states["cpu"].net.state_dict()
+    max_param = max_loose = max_stat = 0.0
+    for name, t in states["cuda"].net.state_dict().items():
+        diff = (t.cpu().double() - cpu[name].double()).abs()
+        if name not in small:
+            max_stat = max(max_stat, diff.max().item())
+            continue
+        loose = small[name].cpu()
+        max_param = max(max_param, torch.where(loose, 0, diff).max().item())
+        max_loose = max(max_loose, torch.where(loose, diff, 0).max().item())
+    if max_param > 1e-5 or max_loose > 2 * lr * steps or max_stat > 1e-4:
+        raise AssertionError(f"card vs CPU learner: params {max_param}, "
+                             f"tiny-gradient params {max_loose}, BN stats "
+                             f"{max_stat}")
+    results["learner_cuda_vs_cpu"] = dict(
+        steps=steps, batch=cfg.training.batch_size, net="2x32 float32",
+        max_aux_rel=max_aux, max_param_abs=max_param,
+        max_tiny_grad_param_abs=max_loose, max_bn_stat_abs=max_stat)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -429,6 +633,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))  # torch_round_inputs (JAX-free)
     results: dict = {}
+    carry: dict = {}  # flagship config, net and trajectory between phases
     failed = []
 
     def phase(name, fn):
@@ -444,7 +649,7 @@ def main() -> int:
     def build():
         from alphazero_reversi_tpu_torch.kernels import build as kbuild
         t0 = time.perf_counter()
-        kbuild.build(["backup_link"])
+        kbuild.build(["backup_link"], solver=True)
         results["build_s"] = time.perf_counter() - t0
         print(f"build_s {results['build_s']:.2f}", flush=True)
 
@@ -453,8 +658,14 @@ def main() -> int:
         phase("kernel_check", lambda: (check_backup_kernel(results),
                                        check_round_kernel(results)))
     if not failed:
-        phase("flagship_selfplay", lambda: flagship_selfplay(results))
+        phase("flagship_selfplay", lambda: flagship_selfplay(results, carry))
+        if "traj" in carry:
+            phase("flagship_training",
+                  lambda: flagship_training(results, carry))
         phase("cuda_vs_cpu", lambda: cuda_matches_cpu(results))
+        if "traj" in carry:
+            phase("learner_cuda_vs_cpu",
+                  lambda: learner_cuda_matches_cpu(results, carry))
 
     kernels = [results[k] for k in ("backup_link", "round_backup")
                if k in results]
@@ -464,6 +675,10 @@ def main() -> int:
         print(json.dumps({"selfplay": results["selfplay"]}))
     if "cuda_vs_cpu" in results:
         print(json.dumps({"cuda_vs_cpu": results["cuda_vs_cpu"]}))
+    if "training" in results:
+        print(json.dumps({"training": {
+            **results["training"],
+            "learner_cuda_vs_cpu": results.get("learner_cuda_vs_cpu")}}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

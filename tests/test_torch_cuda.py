@@ -1,6 +1,7 @@
 """The port on a CUDA card: the backup+link kernel's two entry points
-against their plain versions, and the env and a Gumbel search on the card
-against the same code on the CPU. Every test here needs a card and skips
+against their plain versions; the env, a Gumbel search, the replay buffer
+and the learner on the card against the same code on the CPU; and SGD steps
+that never sync with the host. Every test here needs a card and skips
 without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -12,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from alphazero_reversi_tpu_torch.config import ModelConfig
+from alphazero_reversi_tpu_torch import learner as learner_lib
+from alphazero_reversi_tpu_torch import replay
+from alphazero_reversi_tpu_torch.config import ModelConfig, TrainingConfig
 from alphazero_reversi_tpu_torch.env import bitboard as env
 from alphazero_reversi_tpu_torch.mcts import cuda_backup
 from alphazero_reversi_tpu_torch.mcts import gumbel
@@ -189,3 +192,87 @@ def test_gumbel_search_on_card_matches_cpu(card, warm):
     assert torch.equal(got.visit_counts.cpu(), ref.visit_counts)
     torch.testing.assert_close(got.action_probs.cpu(), ref.action_probs,
                                rtol=0, atol=1e-5)
+
+
+def _training_rows(n: int, seed: int):
+    s = env.initial_state((n,))
+    rng = np.random.default_rng(seed)
+    for _ in range(int(rng.integers(4, 30))):
+        mask = env.legal_action_mask(s).numpy()
+        act = np.array([rng.choice(np.flatnonzero(m)) if m.any() else 64
+                        for m in mask])
+        s, _ = env.step(s, torch.from_numpy(act))
+    policy = rng.dirichlet(np.ones(65), n).astype(np.float32)
+    return (env.canonical_planes(s), torch.from_numpy(policy),
+            torch.from_numpy(rng.integers(-1, 2, n).astype(np.float32)),
+            torch.from_numpy(rng.random(n) < 0.8))
+
+
+def test_replay_on_card_matches_cpu(card):
+    """Inserts (one wraps the ring) and a gather: equal on both devices."""
+    bufs = {d: replay.create(96, device=d) for d in ("cpu", card)}
+    for seed in range(3):
+        rows = _training_rows(64, seed)
+        bufs = {d: replay.add(b, *(x.to(d) for x in rows))
+                for d, b in bufs.items()}
+    cpu, gpu = bufs["cpu"], bufs[card]
+    assert (cpu.cursor, cpu.size) == (gpu.cursor, gpu.size)
+    for x, y in zip(cpu[:3], gpu[:3]):
+        assert torch.equal(x, y.cpu())
+    idx = torch.from_numpy(np.random.default_rng(5).integers(0, 96, 50))
+    for x, y in zip(replay.gather(cpu, idx), replay.gather(gpu, idx.to(card))):
+        assert torch.equal(x, y.cpu())
+
+
+def test_learner_on_card_matches_cpu(card):
+    """3 float32 SGD steps (TF32 off) on the same batches: losses and
+    grad_norm within 1e-4 relative, BN running averages within 1e-4,
+    parameters within 1e-5 except entries whose gradient fell below 1e-6
+    in some step (Adam's step ~ lr * g / (|g| + 1e-8) turns on the rounding
+    of g there: at most 2 * lr per step)."""
+    cfg = TrainingConfig(batch_size=32)
+    torch.manual_seed(0)
+    net = resnet.build_network(ModelConfig(
+        num_res_blocks=2, num_filters=32, compute_dtype="float32"))
+    states = {d: learner_lib.create_train_state(net, cfg, device=d)
+              for d in ("cpu", card)}
+    small = {}
+    for seed in range(3):
+        batch = _training_rows(32, 10 + seed)[:3]
+        aux = {d: learner_lib.train_step(st, *(x.to(d) for x in batch))
+               for d, st in states.items()}
+        for k, v in aux["cpu"].items():
+            assert aux[card][k].item() == pytest.approx(v.item(), rel=1e-4)
+        for name, p in states["cpu"].net.named_parameters():
+            small[name] = small.get(name, False) | (p.grad.abs() < 1e-6)
+    cpu = states["cpu"].net.state_dict()
+    for name, t in states[card].net.state_dict().items():
+        diff = (t.cpu() - cpu[name]).abs()
+        if name not in small:
+            assert diff.max().item() <= 1e-4, name
+            continue
+        loose = small[name]
+        assert torch.where(loose, 0, diff).max().item() <= 1e-5, name
+        assert torch.where(loose, diff, 0).max().item() <= \
+            2 * cfg.learning_rate * 3, name
+
+
+def test_train_steps_never_sync(card):
+    """A ``train_steps`` call (sampling, forward, backward, clip, AdamW,
+    the step-mean metrics) issues no host sync: it runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    net = resnet.build_network(ModelConfig(num_res_blocks=1, num_filters=16))
+    learner = learner_lib.Learner(net, TrainingConfig(batch_size=32))
+    buf = replay.create(256)
+    buf = replay.add(buf, *(x.to(card) for x in _training_rows(128, 0)))
+    gen = torch.Generator(device=card).manual_seed(0)
+    learner.steps(buf, gen, 2, 32)  # first calls: lazy initialisation
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aux = learner.steps(buf, gen, 4, 32)
+        with pytest.raises(RuntimeError):
+            aux["loss"].item()  # the mode is on: a read-back raises
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.isfinite(v).item() for v in aux.values())

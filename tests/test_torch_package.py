@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from alphazero_reversi_tpu.config import Config as JConfig
-from alphazero_reversi_tpu_torch import selfplay
+from alphazero_reversi_tpu_torch import learner, replay, selfplay
 from alphazero_reversi_tpu_torch.config import Config, ModelConfig
 from alphazero_reversi_tpu_torch.env import bitboard as tenv
 from alphazero_reversi_tpu_torch.mcts import gumbel
@@ -66,6 +66,10 @@ def test_entry_points_default_to_cuda():
         selfplay.play_games(net, num_games=2, **{**kw, "algorithm": "gumbel"})
     with pytest.raises(RuntimeError, match="CUDA"):
         selfplay.SelfPlay(net, Config().mcts, Config().self_play)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        learner.Learner(net, Config().training)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay.create(8)
 
 
 def test_search_refuses_states_on_another_device():
