@@ -2,8 +2,8 @@
 
 Port of the shared part of ``alphazero_reversi_tpu/mcts/search.py``: leaf
 evaluation, the staged-unroll bounds, the selection-agnostic round tail
-(evaluate, expand, back up) and the temperature transform. The PUCT driver
-(``run_search``) is not ported yet.
+(evaluate, expand, back up), the temperature transform and the action
+sampler. The PUCT driver (``run_search``) is not ported yet.
 
 Value convention: every evaluated value is from the perspective of the
 player to move at the evaluated state; the backup flips its sign per path
@@ -12,7 +12,7 @@ every ply).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -116,3 +116,21 @@ def probs_with_temperature(visit_counts: torch.Tensor, temperature
     soft = powed / powed.sum(-1, keepdim=True).clamp_min(1e-12)
     soft = torch.where(counts.sum(-1, keepdim=True) == 0, greedy, soft)
     return torch.where(temperature < 1e-3, greedy, soft)
+
+
+def sample_actions(probs: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One action per row of ``probs`` [..., A], drawn from it: the argmax
+    of ``log p + g`` over actions with ``p > 0``, ``g`` standard Gumbel
+    (JAX's ``jax.random.categorical``). ``g`` is drawn on the device from
+    ``generator`` as ``-log(-log(u))``, ``u`` uniform in [tiny, 1), or
+    taken from ``noise`` (same shape as ``probs``). Returns int32."""
+    logits = torch.where(probs > 0, probs.clamp_min(1e-12).log(),
+                         -torch.inf)
+    if noise is None:
+        u = torch.rand(probs.shape, generator=generator,
+                       device=probs.device)
+        noise = -torch.log(-torch.log(
+            u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return (logits + noise).argmax(-1).to(torch.int32)

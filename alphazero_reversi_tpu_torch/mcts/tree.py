@@ -210,6 +210,39 @@ def root_child_warm_stats(tree: Tree, action: torch.Tensor
     return torch.where(ok, visits, 0.0), torch.where(ok, vsum, 0.0)
 
 
+def warm_stats_after(stats: torch.Tensor, a_self: torch.Tensor,
+                     a_opp: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warm root-edge statistics ``(visits [n, A], vsum [n, A])`` after a
+    1- or 2-ply descent from a finished search's ``stats`` [n, N * STRIDE]:
+    the match-play (arena) form of ``root_child_warm_stats``.
+
+    In alternating play a side's next search roots at the grandchild of its
+    previous root: its own move ``a_self``, then the opponent's reply
+    ``a_opp``. ``a_opp < 0`` (the opponent auto-passed) descends one level
+    only. ``a_self < 0`` (no previous search, or an invalidated carry) and
+    missing children give zeros: a cold search. Child links are stripped as
+    in ``root_child_warm_stats``.
+    """
+    n = stats.shape[0]
+    stats3 = stats.reshape(n, -1, STRIDE)
+    rows = torch.arange(n, device=stats.device)
+
+    def pick_child(packed_row: torch.Tensor, action: torch.Tensor
+                   ) -> torch.Tensor:
+        child = unpack_visits_child(packed_row)[1]
+        return _pick(child, action.clamp_min(0)).to(torch.int64)
+
+    c1 = pick_child(stats3[:, 0, VISITS_OFF:VISITS_OFF + A], a_self)
+    c2 = pick_child(stats3[rows, c1, VISITS_OFF:VISITS_OFF + A], a_opp)
+    use2 = a_opp >= 0
+    rowc = stats3[rows, torch.where(use2, c2, c1)]
+    visits = torch.floor(rowc[:, VISITS_OFF:VISITS_OFF + A] * (1.0 / PACK))
+    vsum = rowc[:, VSUM_OFF:VSUM_OFF + A]
+    ok = ((a_self >= 0) & (c1 > 0) & (~use2 | (c2 > 0))).unsqueeze(-1)
+    return torch.where(ok, visits, 0.0), torch.where(ok, vsum, 0.0)
+
+
 def discount_warm(warm_visits: torch.Tensor, warm_vsum: torch.Tensor,
                   discount: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scale a warm pair's weight while preserving its per-edge Q; visits

@@ -1,8 +1,8 @@
-"""Where a flagship self-play move and a flagship SGD step spend their
-time on the card.
+"""Where a flagship self-play move, a flagship SGD step and a promotion
+gate search spend their time on the card.
 
     python -m alphazero_reversi_tpu_torch.trace_selfplay [--moves 2]
-        [--sgd-steps 16]
+        [--sgd-steps 16] [--gate-searches 4]
 
 Plays one warm-up move of the flagship self-play batch
 (``configs/flagship_run.json``, 1024 games, random weights), times
@@ -19,6 +19,12 @@ and does the same for the learner (``sgd``: batch 128, AdamW, random
 weights): 8 warm-up steps, ``--sgd-steps`` timed steps, ``--sgd-steps``
 traced steps; wall and device-busy milliseconds per step, the idle share,
 kernel launches per step and the top kernels.
+
+Last, one search of the promotion gate (``gate``: the flagship's
+tournament settings, Gumbel-32 at ``gumbel_scale=0`` and ``max_depth`` 64
+over one search group of 10 games, from positions 8 random plies in): one
+warm-up search, ``--gate-searches`` timed, as many traced; the same
+numbers per search.
 """
 from __future__ import annotations
 
@@ -30,8 +36,11 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from . import arena
 from . import learner as learner_lib
 from . import replay, selfplay
+from .env import bitboard as env
+from .mcts.search import sample_actions
 from .config import Config
 from .models import resnet
 
@@ -105,10 +114,53 @@ def trace_sgd(cfg: Config, net, traj, steps: int) -> dict:
             "top_kernels_ms": s["top_kernels_ms"]}
 
 
+def trace_gate(cfg: Config, net, searches: int, games: int = 10) -> dict:
+    """Gate searches (one search group: ``games`` games) from positions a
+    few random plies into the game."""
+    tc = cfg.tournament
+    side = arena._make_side_probs(
+        num_simulations=tc.num_simulations, temperature=tc.temperature,
+        max_depth=64, compat=cfg.env_compat, algorithm=tc.algorithm,
+        max_considered_actions=tc.max_considered_actions,
+        c_visit=tc.c_visit, c_scale=tc.c_scale, device=torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    states = env.initial_state((games,), device="cuda")
+    for _ in range(8):
+        probs = arena._random_probs(states, cfg.env_compat)
+        states, _ = env.step(states, sample_actions(probs, gen),
+                             compat=cfg.env_compat)
+    side(states, net)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(searches):
+        side(states, net)
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(searches):
+            side(states, net)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    totals, s = _kernel_summary(prof, wall, plain, searches)
+    backup = [v for k, v in totals.items() if "backup_link_kernel" in k]
+    return {"searches": searches, "games": games,
+            "wall_s_per_search": s["wall_s"] / searches,
+            "profiled_wall_s_per_search": s["profiled_wall_s"] / searches,
+            "device_busy_s_per_search": s["device_busy_s"] / searches,
+            "device_idle_share": s["device_idle_share"],
+            "kernels_per_search": s["kernels_per_unit"],
+            "backup_us_per_launch": (backup[0][1] / backup[0][0]
+                                     if backup else None),
+            "top_kernels_ms": s["top_kernels_ms"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--moves", type=int, default=2)
     parser.add_argument("--sgd-steps", type=int, default=16)
+    parser.add_argument("--gate-searches", type=int, default=4)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trace_selfplay needs a CUDA device")
@@ -150,6 +202,7 @@ def main() -> None:
                                  if backup else None),
         "top_kernels_ms": s["top_kernels_ms"],
         "sgd": trace_sgd(cfg, net, traj, args.sgd_steps),
+        "gate": trace_gate(cfg, net, args.gate_searches),
     }))
 
 

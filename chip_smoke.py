@@ -5,28 +5,53 @@
 
 Phases (each raises on failure; the script exits 1 if any failed):
 
-1. build every CUDA kernel of the path from ``alphazero_reversi_tpu_torch/
-   csrc`` (one ``nvcc`` per source, started together);
-2. hold each kernel entry point against its plain PyTorch version, on the
-   card and on the CPU, at the shapes the flagship self-play gives it
-   (``azr_backup_link``, the JAX-shaped interface, and ``azr_round_backup``,
-   the search's round tail; the round inputs come from
-   ``tests/torch_round_inputs.py``, which imports no JAX), check a
-   captured-graph replay, and time each: device time per launch from a
-   replayed CUDA graph of 200 launches, the wrapper's issue rate back to
-   back, the plain version, one library call, and the bound;
-3. play one flagship self-play batch (``configs/flagship_run.json``: 1024
-   games, Gumbel-32, 4 stages, tree reuse, 60 moves, the 5x128 bf16 ResNet
-   with seeded random weights) and check that every simulation round went
-   through ``azr_round_backup``, once;
-4. play a small float32 batch on the card and on the CPU with the same
-   weights and Gumbel draws (TF32 off): actions and trajectories must agree.
-   The CPU path is the one the CPU tests hold against the JAX package.
+1. ``build``: build every kernel of the path from the checkout (one
+   ``nvcc`` per ``alphazero_reversi_tpu_torch/csrc`` source, and the host
+   endgame solver, started together);
+2. ``kernel_check``: hold each kernel entry point against its plain PyTorch
+   version, on the card and on the CPU (``azr_backup_link``, the
+   JAX-shaped interface, and ``azr_round_backup``, the search's round tail,
+   at the flagship self-play's shape B=1024 and the gate's B=10 with 32
+   path levels; the round inputs come from ``tests/torch_round_inputs.py``,
+   which imports no JAX), check a captured-graph replay, and time each:
+   device time per launch from a replayed CUDA graph of 200 launches, the
+   wrapper's issue rate back to back, the plain version, one library call,
+   and the bound;
+3. ``flagship_selfplay``: one flagship self-play batch
+   (``configs/flagship_run.json``: 1024 games, Gumbel-32, 4 stages, tree
+   reuse, 60 moves, the 5x128 bf16 ResNet with seeded random weights);
+   every simulation round must go through ``azr_round_backup``, once;
+4. ``flagship_training``: the training half of the iteration on that batch
+   (exact-value relabel, ``.npz`` save and reload, 200,000-row replay
+   insert, 512 SGD steps at batch 128 whose last chunk must have a lower
+   loss than the first, the weights back into the self-play net, one more
+   move);
+5. ``flagship_gate``: the promotion gate, ``Arena.run_tournament`` at the
+   flagship's tournament config (current = the trained net, best = the
+   initial net, random; 30 games in 6 merged units, Gumbel-32 at max_depth
+   64); every game must finish, the ELO replay must give the leaderboard,
+   and each search round must launch ``azr_round_backup`` once;
+6. ``checkpoint_roundtrip``: the iteration's checkpoint saved as the
+   pipeline saves it and restored into a fresh pipeline: weights, AdamW,
+   best, replay and generators equal;
+7. ``cuda_vs_cpu``: a small float32 self-play batch on the card and on the
+   CPU with the same weights and Gumbel draws (TF32 off): actions and
+   trajectories must agree (the CPU path is the one the CPU tests hold
+   against the JAX package);
+8. ``learner_cuda_vs_cpu``: 3 float32 learner steps on the card and on the
+   CPU;
+9. ``gate_cuda_vs_cpu``: a tiny float32 merged gate on the card and on the
+   CPU with the same weights and sampling draws: per-unit scores equal;
+10. ``pipeline_cli``: ``cli.main(["train", ...])`` for 2 iterations, then
+    ``cli.main(["continue", ...])`` for a third, at a tiny config
+    (``tests/torch_configs.py``): iteration counter, metric names, one
+    checkpoint per iteration, pruning.
 
-Prints the ``kernels`` JSON line, the self-play rate, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``. Without a CUDA
-device, or without the package beside it, it exits non-zero and prints no
-result.
+Prints the ``kernels``, ``selfplay``, ``cuda_vs_cpu``, ``gate``,
+``checkpoint``, ``pipeline_cli`` and ``training`` (with ``iteration_s``, the
+whole flagship iteration) JSON lines, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
+the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -210,7 +235,7 @@ def check_backup_kernel(results: dict) -> None:
         max_abs_err=max_err, ms=device_ms, issue_ms=issue_ms,
         plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=_bound_ms(nbytes, adds), bound_by="bytes",
-        bound_bytes=nbytes, launches=0)
+        bound_bytes=nbytes)
 
 
 ROUND_ARGS = ("stats", "pn", "pa", "pt", "eval_tomove", "value", "leaves",
@@ -233,7 +258,9 @@ def check_round_kernel(results: dict) -> None:
     the plain version on the CPU at L=1, at L=4 with in-round duplicates,
     and with nodes past the tree and actions outside [0, 65); bit-exact
     against the plain version on the card at L=1; a captured-graph replay of
-    one launch equals the eager launch."""
+    one launch equals the eager launch; and at the gate's shape (B=10,
+    32 levels) bit-exact against both plain versions. Timed at both
+    shapes."""
     from alphazero_reversi_tpu_torch.mcts import cuda_backup
     from torch_round_inputs import round_inputs
 
@@ -275,8 +302,39 @@ def check_round_kernel(results: dict) -> None:
     if not all(torch.equal(graph_t[k], eager[k]) for k in outs):
         raise AssertionError("graph replay of the round kernel != eager")
 
-    # timing at the L=1 flagship shape (in place, repeated on one buffer)
-    t = _round_tensors(d1, dev)
+    gate = round_inputs(np.random.default_rng(10), 10, 33, 32, 1)
+    got = _round_tensors(gate, dev)
+    _round_call(cuda_backup.round_backup, got)
+    cpu = _round_tensors(gate, "cpu")
+    _round_call(cuda_backup.round_backup_reference, cpu)
+    card = _round_tensors(gate, dev)
+    _round_call(cuda_backup.round_backup_reference, card)
+    torch.cuda.synchronize()
+    for k in outs:
+        max_err = max(max_err, (got[k].cpu() - cpu[k]).abs().max().item())
+        if not (torch.equal(got[k].cpu(), cpu[k])
+                and torch.equal(got[k], card[k])):
+            raise AssertionError(f"round kernel != plain version in {k} at "
+                                 "the gate's shape (B=10, levels=32)")
+
+    flagship = _time_round(_round_tensors(d1, dev), d1["slot0"])
+    at_gate = _time_round(_round_tensors(gate, dev), gate["slot0"])
+    results["round_backup"] = dict(
+        name="round_backup", route="cuda", source=SOURCE, replaces=REPLACES,
+        entry="azr_round_backup", main_path=True,
+        shape="B=1024 N=33 levels=24 L=1", exact_l1=True, exact_l4=True,
+        graph_replay_equal=True, max_abs_err=max_err, **flagship,
+        gate_shape="B=10 N=33 levels=32 L=1", gate_exact=True,
+        **{f"gate_{k}": v for k, v in at_gate.items()})
+
+
+def _time_round(t: dict, slot0: int) -> dict:
+    """Device ms per launch (replayed graph), wrapper issue ms, the plain
+    version's ms, one library call's ms and the bound, for the round
+    arguments ``t`` (timed in place, repeated on one buffer)."""
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+
+    dev = torch.device("cuda")
     args = [t[k] for k in ROUND_ARGS]
     device_ms = _graph_ms(lambda: cuda_backup.round_backup(*args))
     issue_ms = _time_ms(lambda: cuda_backup.round_backup(*args), 200)
@@ -288,7 +346,7 @@ def check_round_kernel(results: dict) -> None:
     link_ok = t["leaf_acts"] >= 0  # L=1: no in-round duplicates
     idx, upd = _scatter_yardstick(
         t["pn"], t["pa"], sign * t["value"], t["leaves"],
-        t["leaf_acts"].clamp_min(0), torch.full_like(t["leaves"], d1["slot0"]),
+        t["leaf_acts"].clamp_min(0), torch.full_like(t["leaves"], slot0),
         link_ok, m)
     padded = torch.zeros(b, m + 1, device=dev)
     library_ms = _time_ms(lambda: padded.scatter_add_(1, idx, upd), 200)
@@ -302,14 +360,9 @@ def check_round_kernel(results: dict) -> None:
         + (t["root_visit"].numel() * 4 + t["root_vsum"].numel() * 4) \
         + cells * 8
     adds += t["value"].numel() * 2
-    results["round_backup"] = dict(
-        name="round_backup", route="cuda", source=SOURCE, replaces=REPLACES,
-        entry="azr_round_backup", main_path=True,
-        shape="B=1024 N=33 levels=24 L=1", exact_l1=True, exact_l4=True,
-        graph_replay_equal=True, max_abs_err=max_err, ms=device_ms,
-        issue_ms=issue_ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=_bound_ms(nbytes, adds), bound_by="bytes",
-        bound_bytes=nbytes)
+    return dict(ms=device_ms, issue_ms=issue_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=_bound_ms(nbytes, adds),
+                bound_by="bytes", bound_bytes=nbytes)
 
 
 def flagship_selfplay(results: dict, carry: dict) -> None:
@@ -338,8 +391,10 @@ def flagship_selfplay(results: dict, carry: dict) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = cuda_backup.ROUND_LAUNCHES
-    results["round_backup"]["launches"] = launches
-    results["backup_link"]["launches"] = cuda_backup.LAUNCHES
+    results["round_backup"]["launches_by_path"] = {
+        "flagship_selfplay": launches}
+    results["backup_link"]["launches_by_path"] = {
+        "flagship_selfplay": cuda_backup.LAUNCHES}
 
     tensors = [*traj[:5], *traj.final_state, traj.actions]
     if any(t.device.type != "cuda" for t in tensors):
@@ -373,7 +428,9 @@ def flagship_selfplay(results: dict, carry: dict) -> None:
         if not torch.equal(x, y.cpu()):
             raise AssertionError("replayed final state differs")
     positions = int(valid.sum())
-    carry.update(cfg=cfg, net=net, traj=traj, kw=kw)
+    # the seeded initial net is the gate's "best" player
+    carry.update(cfg=cfg, net=net, traj=traj, kw=kw,
+                 initial_net=copy.deepcopy(net))
     results["selfplay"] = dict(
         config="configs/flagship_run.json", games=games,
         move_slots=int(traj.actions.shape[0]), live_slots=live_slots,
@@ -549,6 +606,7 @@ def flagship_training(results: dict, carry: dict) -> None:
                              "result")
 
     steps = n_chunks * chunk
+    carry.update(learner=learner, buffer=buf, generator=gen)
     results["training"] = dict(
         relabel={**rstats, "wall_s": relabel_s, "checked_full_solves":
                  checked},
@@ -557,9 +615,7 @@ def flagship_training(results: dict, carry: dict) -> None:
         sgd_steps=steps, batch_size=tc.batch_size, sgd_s=sgd_s,
         steps_per_s=steps / sgd_s, samples_per_s=steps * tc.batch_size
         / sgd_s, first_chunk=host[0], last_chunk=host[-1],
-        chunk_losses=[a["loss"] for a in host],
-        iteration_s_without_gate=results["selfplay"]["seconds"] + relabel_s
-        + save_s + add_s + sgd_s)
+        chunk_losses=[a["loss"] for a in host])
 
 
 def learner_cuda_matches_cpu(results: dict, carry: dict) -> None:
@@ -622,6 +678,240 @@ def learner_cuda_matches_cpu(results: dict, carry: dict) -> None:
         max_tiny_grad_param_abs=max_loose, max_bn_stat_abs=max_stat)
 
 
+def flagship_gate(results: dict, carry: dict) -> None:
+    """The flagship's promotion gate on the card, through
+    ``Arena.run_tournament`` at ``configs/flagship_run.json``'s tournament
+    config (5 rounds x 2 games for each of 3 pairs: 30 games in 6
+    single-colour units, merged pairings, Gumbel-32 over 16 considered
+    actions at temperature 0.1, tree reuse, the 5x128 bf16 net): current
+    (the learner after the SGD phase), best (the seeded initial net) and
+    random. Every game must finish, every score lie in {0, 0.5, 1}, the ELO
+    replay of the games must give the leaderboard, and every search round
+    must have launched azr_round_backup once."""
+    from alphazero_reversi_tpu_torch.arena import Arena
+    from alphazero_reversi_tpu_torch.elo import ELORatingSystem
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+
+    cfg = carry["cfg"]
+    tcfg = cfg.tournament
+    ar = Arena(tcfg, compat=cfg.env_compat)
+    ar.add_player("current", carry["learner"].net)
+    ar.add_player("best", carry["initial_net"])
+    ar.add_player("random", None)
+    torch.cuda.synchronize()
+    cuda_backup.LAUNCHES = cuda_backup.ROUND_LAUNCHES = 0
+    t0 = time.perf_counter()
+    board = ar.run_tournament(cfg.seed)
+    seconds = _sync_s(t0)
+    launches = cuda_backup.ROUND_LAUNCHES
+    results["round_backup"]["launches_by_path"]["flagship_gate"] = launches
+    results["backup_link"]["launches_by_path"]["flagship_gate"] = \
+        cuda_backup.LAUNCHES
+    info = dict(ar.play_info)
+
+    games = tcfg.rounds * tcfg.games_per_pair * 3
+    if len(ar.elo.history) != games or info["unfinished"]:
+        raise AssertionError(f"{len(ar.elo.history)} games scored of "
+                             f"{games}, {info['unfinished']} unfinished")
+    if not {h["score_a"] for h in ar.elo.history} <= {0.0, 0.5, 1.0}:
+        raise AssertionError("a game score is outside {0, 0.5, 1}")
+    replay = ELORatingSystem(k=tcfg.elo_k_factor,
+                             initial_rating=tcfg.elo_initial)
+    for h in ar.elo.history:
+        replay.update_ratings(h["player_a"], h["player_b"], h["score_a"])
+    if replay.get_leaderboard() != board:
+        raise AssertionError("the ELO replay differs from the leaderboard")
+    rounds = tcfg.num_simulations  # leaf_batch 1: one round per simulation
+    if launches != rounds * info["searches"] or cuda_backup.LAUNCHES:
+        raise AssertionError(f"round kernel launched {launches} times for "
+                             f"{info['searches']} searches of {rounds} "
+                             "rounds")
+    ratings = {p["player_id"]: p["rating"] for p in board}
+    carry["gate_board"] = ratings
+    results["gate"] = dict(
+        config="configs/flagship_run.json tournament", games=games,
+        units=6, seconds=seconds, searches=info["searches"],
+        half_plies=info["half_plies"],
+        searched_games=info["searched_games"], moves=info["moves"],
+        moves_per_s=info["moves"] / seconds,
+        s_per_search=seconds / info["searches"],
+        kernel_launches=launches,
+        launches_per_search=launches / info["searches"],
+        leaderboard=board,
+        promoted=ratings["current"] > ratings["best"]
+        + tcfg.promotion_elo_margin)
+
+
+def _pipeline_state_equal(a, b) -> None:
+    """Raise unless two pipelines hold the same training state."""
+    pairs = [(a.learner.state_dict(), b.learner.state_dict(), "learner"),
+             (a.best_net.state_dict(), b.best_net.state_dict(), "best")]
+    for x, y, what in pairs:
+        if x.keys() != y.keys() or not all(torch.equal(x[k], y[k])
+                                           for k in x):
+            raise AssertionError(f"restored {what} weights differ")
+    sa, sb = (p.learner.state.optimizer.state_dict() for p in (a, b))
+    if sa["param_groups"] != sb["param_groups"] or not all(
+            torch.equal(v, sb["state"][i][k])
+            for i, st in sa["state"].items() for k, v in st.items()):
+        raise AssertionError("restored AdamW state differs")
+    if not all(torch.equal(x, y) for x, y in zip(a.buffer[:3], b.buffer[:3])) \
+            or a.buffer[3:] != b.buffer[3:]:
+        raise AssertionError("restored replay buffer differs")
+    for g in ("generator", "host_generator"):
+        if not torch.equal(getattr(a, g).get_state(),
+                           getattr(b, g).get_state()):
+            raise AssertionError(f"restored {g} state differs")
+    if (a.iteration, a.best_elo, a.learner.state.step) != \
+            (b.iteration, b.best_elo, b.learner.state.step):
+        raise AssertionError("restored counters differ")
+
+
+def checkpoint_roundtrip(results: dict, carry: dict) -> None:
+    """The flagship iteration's checkpoint: a pipeline holding the state the
+    phases above left (the learner after SGD, the 200,000-row buffer, best
+    = the initial net, the SGD generator) saves it as the pipeline does
+    after the gate, and a fresh pipeline restores it; every part must be
+    equal. Reports the seconds the loop waits (the host copy) and the whole
+    save's seconds, and the file's bytes."""
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch.pipeline import AlphaZeroPipeline
+
+    cfg = copy.deepcopy(carry["cfg"])
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.training.checkpoint_dir = str(Path(tmp) / "checkpoints")
+        cfg.logging.log_dir = str(Path(tmp) / "logs")
+        cfg.logging.verbose = False
+        pipe = AlphaZeroPipeline(cfg, run_name="smoke")
+        pipe.learner = carry["learner"]
+        pipe.buffer = carry["buffer"]
+        pipe.best_net = carry["initial_net"]
+        pipe.generator = carry["generator"]
+        pipe.iteration = 1
+        pipe.best_elo = carry.get("gate_board", {}).get("best", 1200.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = pipe.save_checkpoint()
+        blocking_s = time.perf_counter() - t0
+        ckpt.wait_for_saves()
+        total_s = time.perf_counter() - t0
+        nbytes = (Path(path) / ckpt.STATE_FILE).stat().st_size
+        fresh = AlphaZeroPipeline(cfg, run_name="smoke")
+        t0 = time.perf_counter()
+        if not fresh.load_checkpoint():
+            raise AssertionError("no checkpoint found")
+        restore_s = _sync_s(t0)
+        _pipeline_state_equal(pipe, fresh)
+        if fresh.buffer.planes.device.type != "cuda":
+            raise AssertionError("the restored buffer is not on the card")
+    results["checkpoint"] = dict(
+        async_save=cfg.training.async_checkpointing, blocking_s=blocking_s,
+        total_s=total_s, restore_s=restore_s, bytes=nbytes, equal=True)
+
+
+JAX_METRIC_NAMES = {  # the JAX pipeline's (pipeline.py train() and eval)
+    "train/loss", "train/policy_loss", "train/value_loss", "train/lr",
+    "train/grad_norm", "selfplay/positions", "selfplay/live_fraction",
+    "selfplay/seconds", "train/seconds", "eval/seconds", "replay/size",
+    "eval/elo", "eval/best_elo", "eval/random_elo", "eval/promoted"}
+RELABEL_STATS = ("candidates", "solved", "unique_solves", "skipped",
+                 "seconds", "max_empties_solved", "changed")
+
+
+def pipeline_cli(results: dict) -> None:
+    """``cli.main(["train", ...])`` for 2 iterations, then
+    ``cli.main(["continue", ...])`` to 3, on the card, at a tiny config
+    (``tests/torch_configs.py``: a 2x32 net, 16 games of Gumbel-4 self-play
+    with relabel at <= 10 empties, SGD in chunks of 2, a Gumbel-2 gate of
+    1 round x 2 games per pair). Checks the iteration counter, the metric
+    names (the JAX pipeline's plus ``checkpoint/seconds``), one checkpoint
+    saved per iteration, and that only the newest is kept."""
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch import cli
+    from torch_configs import tiny_run_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = tiny_run_config(tmp, blocks=2, filters=32, games=16,
+                              max_moves=60, exact_value_empties=10,
+                              gate_simulations=2, use_tensorboard=True)
+        cfg_path = str(Path(tmp) / "config.json")
+        cfg.save(cfg_path)
+        t0 = time.perf_counter()
+        for command, total in (("train", "2"), ("continue", "3")):
+            if cli.main([command, "-c", cfg_path, "--iterations", total,
+                         "--run-name", "smoke"]) != 0:
+                raise AssertionError(f"cli {command} failed")
+        seconds = _sync_s(t0)
+        run = Path(tmp) / "logs" / "smoke"
+        rows = [json.loads(line) for line in
+                (run / "metrics.jsonl").read_text().splitlines()]
+        if [r["step"] for r in rows] != [0, 1, 2]:
+            raise AssertionError(f"steps {[r['step'] for r in rows]}")
+        want = JAX_METRIC_NAMES | {"checkpoint/seconds"} | {
+            f"selfplay/relabel_{k}" for k in RELABEL_STATS}
+        for r in rows:
+            if set(r) - {"step"} != want:
+                raise AssertionError(f"metric names {sorted(set(r))}")
+        log = (run / "training.log").read_text()
+        for it in (1, 2, 3):
+            if f"it_{it:06d}" not in log:
+                raise AssertionError(f"no checkpoint of iteration {it}")
+        kept = sorted(p.name for p in (Path(tmp) / "checkpoints")
+                      .glob("it_*"))
+        if kept != ["it_000003"]:
+            raise AssertionError(f"checkpoints kept: {kept}")
+        tree = ckpt.restore_checkpoint(
+            ckpt.latest_checkpoint(cfg.training.checkpoint_dir))
+        if tree["iteration"] != 3:
+            raise AssertionError(f"iteration {tree['iteration']}")
+    results["pipeline_cli"] = dict(
+        iterations=3, seconds=seconds,
+        s_per_iteration=[r["selfplay/seconds"] + r["train/seconds"]
+                         + r["eval/seconds"] + r["checkpoint/seconds"]
+                         for r in rows],
+        promoted=[r["eval/promoted"] for r in rows], kept=kept)
+
+
+def gate_cuda_matches_cpu(results: dict) -> None:
+    """A tiny float32 merged gate (two 1x16 nets and the random player, 6
+    units of 3 games, Gumbel-8, tree reuse, temperature 0.5) on the card and
+    on the CPU with the same weights and injected sampling draws, TF32 off:
+    per-unit scores must be equal."""
+    from alphazero_reversi_tpu_torch import arena
+    from alphazero_reversi_tpu_torch.config import ModelConfig
+    from alphazero_reversi_tpu_torch.env import bitboard as env
+    from alphazero_reversi_tpu_torch.models import resnet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(5)
+    nets = [resnet.build_network(ModelConfig(
+        num_res_blocks=1, num_filters=16, compute_dtype="float32"))
+        for _ in range(2)] + [None]
+    units = [(i, j, 3, c) for i, j in ((0, 1), (0, 2), (1, 2))
+             for c in (env.BLACK, env.WHITE)]
+    kw = dict(num_simulations=8, temperature=0.5, algorithm="gumbel",
+              max_considered_actions=4, tree_reuse="root")
+    pairs = (60 + 16 + 1) // 2
+    noise = [torch.from_numpy(np.random.default_rng(u).gumbel(
+        size=(2 * pairs, 3, 65)).astype(np.float32)) for u in range(6)]
+    cpu = arena.play_units(nets, units, sample_noise=noise, device="cpu",
+                           **kw)
+    gpu = arena.play_units([n if n is None else n.cuda() for n in nets],
+                           units, sample_noise=[x.cuda() for x in noise],
+                           **kw)
+    for u, (x, y) in enumerate(zip(gpu, cpu)):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"card vs CPU gate: unit {u} scores {x} "
+                                 f"!= {y}")
+    results["gate_cuda_vs_cpu"] = dict(units=6, games=18,
+                                       scores_equal=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -631,9 +921,10 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(ROOT / "tests"))  # torch_round_inputs (JAX-free)
+    # torch_round_inputs and torch_configs (both JAX-free)
+    sys.path.insert(0, str(ROOT / "tests"))
     results: dict = {}
-    carry: dict = {}  # flagship config, net and trajectory between phases
+    carry: dict = {}  # flagship config, nets, trajectory, learner, buffer
     failed = []
 
     def phase(name, fn):
@@ -662,22 +953,46 @@ def main() -> int:
         if "traj" in carry:
             phase("flagship_training",
                   lambda: flagship_training(results, carry))
+        if "learner" in carry:
+            phase("flagship_gate", lambda: flagship_gate(results, carry))
+            phase("checkpoint_roundtrip",
+                  lambda: checkpoint_roundtrip(results, carry))
         phase("cuda_vs_cpu", lambda: cuda_matches_cpu(results))
         if "traj" in carry:
             phase("learner_cuda_vs_cpu",
                   lambda: learner_cuda_matches_cpu(results, carry))
+        phase("gate_cuda_vs_cpu", lambda: gate_cuda_matches_cpu(results))
+        phase("pipeline_cli", lambda: pipeline_cli(results))
 
     kernels = [results[k] for k in ("backup_link", "round_backup")
                if k in results]
+    for k in kernels:  # the main path: self-play batch, then the gate
+        k["launches"] = sum(k.get("launches_by_path", {}).values())
     if kernels:
         print(json.dumps({"kernels": kernels}))
     if "selfplay" in results:
         print(json.dumps({"selfplay": results["selfplay"]}))
     if "cuda_vs_cpu" in results:
         print(json.dumps({"cuda_vs_cpu": results["cuda_vs_cpu"]}))
+    if "gate" in results:
+        print(json.dumps({"gate": {
+            **results["gate"],
+            "gate_cuda_vs_cpu": results.get("gate_cuda_vs_cpu")}}))
+    if "checkpoint" in results:
+        print(json.dumps({"checkpoint": results["checkpoint"]}))
+    if "pipeline_cli" in results:
+        print(json.dumps({"pipeline_cli": results["pipeline_cli"]}))
     if "training" in results:
+        tr = results["training"]
+        parts = dict(selfplay_s=results["selfplay"]["seconds"],
+                     relabel_s=tr["relabel"]["wall_s"], save_s=tr["save_s"],
+                     replay_add_s=tr["replay_add_s"], sgd_s=tr["sgd_s"],
+                     gate_s=results.get("gate", {}).get("seconds"),
+                     checkpoint_s=results.get("checkpoint", {}).get(
+                         "blocking_s"))
+        whole = None if None in parts.values() else sum(parts.values())
         print(json.dumps({"training": {
-            **results["training"],
+            **tr, "iteration_parts": parts, "iteration_s": whole,
             "learner_cuda_vs_cpu": results.get("learner_cuda_vs_cpu")}}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -276,3 +276,82 @@ def test_train_steps_never_sync(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(torch.isfinite(v).item() for v in aux.values())
+
+
+def test_round_backup_kernel_at_gate_shape(card):
+    """azr_round_backup at the promotion gate's shape: 10 games per search
+    group, N=33, 32 path levels at the last stage of a Gumbel-32 search
+    with max_depth 64 (still the one-step path, P <= 32); equal to the plain
+    version on the CPU and on the card bit for bit."""
+    d = round_inputs(np.random.default_rng(10), 10, 33, 32, 1)
+    got = _round(d, card, cuda_backup.round_backup)
+    for x, y in zip(got, _round(d, "cpu", cuda_backup.round_backup_reference)):
+        assert torch.equal(x.cpu(), y)
+    for x, y in zip(got, _round(d, card, cuda_backup.round_backup_reference)):
+        assert torch.equal(x, y)
+
+
+def test_gate_on_card_matches_cpu(card):
+    """A tiny float32 merged gate (two nets and the random player, tree
+    reuse, the same injected sampling draws) gives the same per-unit scores
+    on the card as on the CPU, and each search round launched the kernel
+    once."""
+    from alphazero_reversi_tpu_torch import arena
+
+    torch.manual_seed(0)
+    nets = [resnet.build_network(ModelConfig(
+        num_res_blocks=1, num_filters=16, compute_dtype="float32"))
+        for _ in range(2)] + [None]
+    units = [(0, 1, 3, env.BLACK), (0, 1, 3, env.WHITE),
+             (0, 2, 3, env.BLACK), (0, 2, 3, env.WHITE),
+             (1, 2, 3, env.BLACK), (1, 2, 3, env.WHITE)]
+    kw = dict(num_simulations=8, temperature=0.5, algorithm="gumbel",
+              max_considered_actions=4, tree_reuse="root")
+    pairs = (60 + 16 + 1) // 2
+    noise = [torch.from_numpy(np.random.default_rng(u).gumbel(
+        size=(2 * pairs, 3, 65)).astype(np.float32)) for u in range(6)]
+    cpu = arena.play_units(nets, units, sample_noise=noise, device="cpu",
+                           **kw)
+    info = {}
+    before = cuda_backup.ROUND_LAUNCHES
+    gpu = arena.play_units([n if n is None else n.to(card) for n in nets],
+                           units, sample_noise=[x.to(card) for x in noise],
+                           info=info, **kw)
+    assert cuda_backup.ROUND_LAUNCHES - before == 8 * info["searches"]
+    for x, y in zip(gpu, cpu):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_checkpoint_restores_onto_card(card, tmp_path):
+    """A pipeline on the card saves its state (CUDA tensors, the CUDA
+    generator) and a fresh pipeline on the card restores it exactly."""
+    import os
+    import sys
+
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch import pipeline
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_configs import tiny_run_config
+
+    cfg = tiny_run_config(str(tmp_path))
+    src = pipeline.AlphaZeroPipeline(cfg)
+    rows = _training_rows(64, 0)
+    src.buffer = replay.add(src.buffer, *(x.to(card) for x in rows))
+    src.learner.steps(src.buffer, src.generator, 2, 16)
+    src.iteration = 1
+    src.save_checkpoint()
+    ckpt.wait_for_saves()
+    dst = pipeline.AlphaZeroPipeline(cfg)
+    assert dst.load_checkpoint()
+    for x, y in zip(src.learner.state_dict().values(),
+                    dst.learner.state_dict().values()):
+        assert y.device.type == "cuda" and torch.equal(x, y)
+    for x, y in zip(src.buffer[:3], dst.buffer[:3]):
+        assert y.device.type == "cuda" and torch.equal(x, y)
+    assert (dst.buffer.cursor, dst.buffer.size) == (src.buffer.cursor,
+                                                    src.buffer.size)
+    opt = dst.learner.state.optimizer.state_dict()["state"]
+    assert all(v["exp_avg"].device.type == "cuda" for v in opt.values())
+    assert torch.equal(torch.rand(3, generator=src.generator, device=card),
+                       torch.rand(3, generator=dst.generator, device=card))

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from alphazero_reversi_tpu.config import Config as JConfig
-from alphazero_reversi_tpu_torch import learner, replay, selfplay
+from alphazero_reversi_tpu_torch import (arena, cli, learner, pipeline,
+                                         replay, selfplay)
 from alphazero_reversi_tpu_torch.config import Config, ModelConfig
 from alphazero_reversi_tpu_torch.env import bitboard as tenv
 from alphazero_reversi_tpu_torch.mcts import gumbel
@@ -52,7 +53,7 @@ def test_config_migrates_legacy_keys_like_jax():
         dataclasses.asdict(JConfig.from_dict(raw))
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without a device argument the entry points mean CUDA, and raise on a
     host without one instead of falling back to the CPU."""
     if torch.cuda.is_available():
@@ -70,6 +71,22 @@ def test_entry_points_default_to_cuda():
         learner.Learner(net, Config().training)
     with pytest.raises(RuntimeError, match="CUDA"):
         replay.create(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        arena.Arena(Config().tournament)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        arena.play_units([None, None], [(0, 1, 2, tenv.BLACK)],
+                         num_simulations=2, temperature=1.0)
+    cfg = Config()
+    cfg.logging.log_dir = str(tmp_path / "logs")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.AlphaZeroPipeline(cfg)
+    cfg.save(str(tmp_path / "c.json"))
+    for argv in (["train", "-c", str(tmp_path / "c.json")],
+                 ["continue", "-c", str(tmp_path / "c.json")],
+                 ["tournament", "-c", str(tmp_path / "c.json"),
+                  "--model-dir", str(tmp_path)]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
 
 
 def test_search_refuses_states_on_another_device():

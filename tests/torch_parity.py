@@ -16,6 +16,12 @@ from alphazero_reversi_tpu_torch.env import bitboard as tenv
 from alphazero_reversi_tpu_torch.models import resnet as tresnet
 from alphazero_reversi_tpu_torch.models.weights import state_dict_from_flax
 
+# The port's CPU tests run eager ops on tiny tensors, where torch's
+# intra-op thread pool costs far more than it gains (a tiny self-play batch
+# runs over ten times slower with it), most of all when test workers share
+# the host's cores.
+torch.set_num_threads(1)
+
 
 def u64_to_int64(x: U64) -> np.ndarray:
     hi = np.asarray(x.hi).astype(np.uint64)
