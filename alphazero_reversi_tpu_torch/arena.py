@@ -126,8 +126,7 @@ def _check_units(units: Sequence[Unit], num_models: int) -> None:
 
 @torch.no_grad()
 def play_units(nets: Sequence[Optional[nn.Module]], units: Sequence[Unit], *,
-               num_simulations: int, temperature: float, c_puct: float = 1.0,
-               max_depth: int = 64, max_moves: int = 60,
+               num_simulations: int, temperature: float, max_depth: int = 64, max_moves: int = 60,
                compat: bool = False, pass_slack: int = 16,
                leaf_batch: int = 1, algorithm: str = "puct",
                max_considered_actions: int = 16, c_visit: float = 50.0,
@@ -146,8 +145,8 @@ def play_units(nets: Sequence[Optional[nn.Module]], units: Sequence[Unit], *,
     all of them. ``generators``: one per unit for move sampling (default:
     the device's default generator). ``sample_noise``: one tensor per unit,
     ``[2 * num_pairs, num_games, A]``, the Gumbel draw of each half-ply
-    (black, white, black, ...), replacing the generators. ``c_puct`` is
-    accepted for the PUCT side (not ported). ``info``, when given, has
+    (black, white, black, ...), replacing the generators. ``info``, when
+    given, has
     this call's counts added to it: ``searches``, ``half_plies`` (with a
     move), ``searched_games``, ``moves`` (plies played) and ``unfinished``
     (games still live at the ply cap, scored by piece count).
@@ -326,7 +325,6 @@ class Arena:
         self.elo = ELORatingSystem(k=config.elo_k_factor,
                                    initial_rating=config.elo_initial)
         self.players: List[Player] = []
-        self.units_played: List[int] = []
         # play_units' counts since the arena was made
         self.play_info: Dict[str, int] = {}
 
@@ -343,7 +341,7 @@ class Arena:
 
     def _play_kwargs(self) -> Dict[str, Any]:
         cfg = self.config
-        return dict(num_simulations=cfg.num_simulations, c_puct=cfg.c_puct,
+        return dict(num_simulations=cfg.num_simulations,
                     temperature=cfg.temperature, compat=self.compat,
                     algorithm=cfg.algorithm,
                     max_considered_actions=cfg.max_considered_actions,
@@ -352,15 +350,13 @@ class Arena:
                     tree_reuse_discount=cfg.tree_reuse_discount,
                     info=self.play_info, device=self.device)
 
-    def play_games(self, a: Player, b: Player, seed: int, num_games: int,
-                   black_games: Optional[int] = None) -> np.ndarray:
-        """Batched A-vs-B match; returns per-game scores for A."""
-        black = num_games // 2 if black_games is None else black_games
-        halves = [i for i, n in enumerate((black, num_games - black)) if n]
+    def play_games(self, a: Player, b: Player, seed: int,
+                   num_games: int) -> np.ndarray:
+        """Batched A-vs-B match, A as BLACK in the first half (``num_games``
+        even); returns per-game scores for A."""
         return play_pair(a.net, b.net, num_games=num_games,
-                         black_games=black_games,
                          generators=self._generators(
-                             [_seed(seed, i) for i in halves]),
+                             [_seed(seed, 0), _seed(seed, 1)]),
                          **self._play_kwargs())
 
     def play_units_merged(self, units) -> List[np.ndarray]:
@@ -389,13 +385,18 @@ class Arena:
         round) % 2``."""
         rounds = rounds if rounds is not None else self.config.rounds
         n = len(self.players)
+        per_pair: Dict[Tuple[int, int], List[float]] = {}
         if self.config.merge_pairings:
-            return self.run_tournament_sharded(seed, rounds=rounds)
+            units = self._tournament_units(seed, rounds)
+            for (i, j, _, _, _), s in zip(units,
+                                          self.play_units_merged(units)):
+                per_pair.setdefault((i, j), []).extend(float(x) for x in s)
+            self._replay_elo(per_pair, rounds)
+            return self.elo.get_leaderboard()
         if self.config.batch_rounds:
             # all rounds of a pairing in one batch (an odd total plays one
             # filler game whose score is dropped); the ELO updates are
             # replayed in the round-interleaved order of the path below
-            per_pair: Dict[Tuple[int, int], List[float]] = {}
             total = rounds * self.config.games_per_pair
             match = 0
             for i in range(n):
@@ -457,45 +458,6 @@ class Arena:
                     units.append((i, j, nw, 0, _seed(seed, pair, 1)))
                 pair += 1
         return units
-
-    def run_tournament_sharded(self, seed: int, shard_index: int = 0,
-                               shard_count: int = 1, gather=None,
-                               rounds: Optional[int] = None) -> List[Dict]:
-        """Tournament over the canonical units: this shard plays the units
-        with ``unit_index % shard_count == shard_index`` (all together with
-        ``merge_pairings``, else one match each), ``gather`` merges the
-        per-unit score rows across shards, and the ELO updates are replayed
-        in the canonical order. This single-device port runs the one-shard
-        form (``shard_count=1``, ``gather=None``); the multi-process gather
-        is ROADMAP.md queue 1 item 12."""
-        rounds = rounds if rounds is not None else self.config.rounds
-        units = self._tournament_units(seed, rounds)
-        self.units_played = []
-        if not units:
-            return self.elo.get_leaderboard()
-        max_g = max(u[2] for u in units)
-        scores = np.zeros((len(units), max_g), np.float32)
-        mine = [(u_idx, u) for u_idx, u in enumerate(units)
-                if u_idx % shard_count == shard_index]
-        self.units_played = [u_idx for u_idx, _ in mine]
-        if self.config.merge_pairings and mine:
-            merged = self.play_units_merged([u for _, u in mine])
-            for (u_idx, (i, j, ng, bg, _)), s in zip(mine, merged):
-                scores[u_idx, :ng] = s
-        else:
-            for u_idx, (i, j, ng, bg, useed) in mine:
-                scores[u_idx, :ng] = self.play_games(
-                    self.players[i], self.players[j], useed, ng,
-                    black_games=bg)
-        if gather is not None:
-            owners = np.arange(len(units)) % shard_count
-            scores = gather(scores, owners)
-        per_pair: Dict[Tuple[int, int], List[float]] = {}
-        for u_idx, (i, j, ng, bg, _) in enumerate(units):
-            per_pair.setdefault((i, j), []).extend(
-                float(x) for x in scores[u_idx, :ng])
-        self._replay_elo(per_pair, rounds)
-        return self.elo.get_leaderboard()
 
     def save_results(self, filepath: str) -> None:
         """Persist the ELO state."""

@@ -72,23 +72,31 @@ def wait_for_saves() -> None:
 
 def _write_atomic(path: str, filename: str, tree: Any) -> None:
     """``torch.save`` into a temporary directory beside ``path``, then
-    rename it into place (replacing an older ``path``)."""
+    rename it into place (replacing an older ``path``). If the write fails
+    or is interrupted, an older ``path`` that was already moved aside is
+    moved back."""
     parent = os.path.dirname(path)
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f".tmp_{os.path.basename(path)}_",
                            dir=parent)
+    old = None
     try:
         torch.save(tree, os.path.join(tmp, filename))
-        old = None
         if os.path.exists(path):
             old = tempfile.mkdtemp(prefix=".old_", dir=parent)
             os.rename(path, os.path.join(old, "x"))
         os.rename(tmp, path)
-        if old is not None:
-            shutil.rmtree(old, ignore_errors=True)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        if old is not None:
+            moved = os.path.join(old, "x")
+            if os.path.exists(moved) and not os.path.exists(path):
+                os.rename(moved, path)  # put the older checkpoint back
+            if not os.path.exists(moved):
+                os.rmdir(old)
         raise
+    if old is not None:
+        shutil.rmtree(old, ignore_errors=True)
 
 
 def _save(path: str, filename: str, tree: Any, async_save: bool) -> str:

@@ -34,22 +34,31 @@ Phases (each raises on failure; the script exits 1 if any failed):
 6. ``checkpoint_roundtrip``: the iteration's checkpoint saved as the
    pipeline saves it and restored into a fresh pipeline: weights, AdamW,
    best, replay and generators equal;
-7. ``cuda_vs_cpu``: a small float32 self-play batch on the card and on the
+7. ``flagship_iteration_cli``: one whole flagship iteration through
+   ``cli.main(["train", "-c", "configs/flagship_run.json", "--iterations",
+   "1", ...])``, everything built by the pipeline: the metrics row, the
+   checkpoint of iteration 1, and one ``azr_round_backup`` launch per
+   search round; its own phase seconds stand beside the sum of the
+   separately timed phases 3-6;
+8. ``cuda_vs_cpu``: a small float32 self-play batch on the card and on the
    CPU with the same weights and Gumbel draws (TF32 off): actions and
    trajectories must agree (the CPU path is the one the CPU tests hold
    against the JAX package);
-8. ``learner_cuda_vs_cpu``: 3 float32 learner steps on the card and on the
+9. ``learner_cuda_vs_cpu``: 3 float32 learner steps on the card and on the
    CPU;
-9. ``gate_cuda_vs_cpu``: a tiny float32 merged gate on the card and on the
-   CPU with the same weights and sampling draws: per-unit scores equal;
-10. ``pipeline_cli``: ``cli.main(["train", ...])`` for 2 iterations, then
+10. ``gate_cuda_vs_cpu``: a tiny float32 merged gate on the card and on
+    the CPU with the same weights and sampling draws: per-unit scores
+    equal;
+11. ``pipeline_cli``: ``cli.main(["train", ...])`` for 2 iterations, then
     ``cli.main(["continue", ...])`` for a third, at a tiny config
     (``tests/torch_configs.py``): iteration counter, metric names, one
     checkpoint per iteration, pruning.
 
 Prints the ``kernels``, ``selfplay``, ``cuda_vs_cpu``, ``gate``,
-``checkpoint``, ``pipeline_cli`` and ``training`` (with ``iteration_s``, the
-whole flagship iteration) JSON lines, the card's name and power limit, and
+``checkpoint``, ``pipeline_cli``, ``iteration_cli`` and ``training`` JSON
+lines (``training.iteration_s`` sums the separately timed phases 3-6;
+``iteration_cli_s`` is the pipeline's own iteration from phase 7), the
+card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -876,6 +885,87 @@ def pipeline_cli(results: dict) -> None:
         promoted=[r["eval/promoted"] for r in rows], kept=kept)
 
 
+def flagship_iteration_cli(results: dict) -> None:
+    """One whole flagship iteration through the command a user runs:
+    ``cli.main(["train", "-c", "configs/flagship_run.json", "--iterations",
+    "1", "--run-dir", <tmp>])``: self-play of 1024 games, relabel, save,
+    replay insert, SGD, the merged gate of current, best and random, and
+    the checkpoint, all built by the pipeline itself. Checks the one
+    metrics row (the JAX pipeline's names plus ``checkpoint/seconds``,
+    finite, the buffer holding the new positions), the checkpoint of
+    iteration 1, and that every search round launched ``azr_round_backup``
+    once (a positive multiple of the rounds a search) and nothing
+    launched ``azr_backup_link``. Reports the pipeline's own phase seconds,
+    their sum and the call's wall clock."""
+    import math
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch import cli
+    from alphazero_reversi_tpu_torch.config import Config
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+
+    cfg_path = ROOT / "configs" / "flagship_run.json"
+    cfg = Config.load(str(cfg_path))
+    # leaf_batch 1: one round a simulation, in self-play and in the gate
+    rounds = math.gcd(cfg.mcts.num_simulations,
+                      cfg.tournament.num_simulations)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        cuda_backup.LAUNCHES = cuda_backup.ROUND_LAUNCHES = 0
+        t0 = time.perf_counter()
+        if cli.main(["train", "-c", str(cfg_path), "--iterations", "1",
+                     "--run-dir", tmp, "--run-name", "smoke"]) != 0:
+            raise AssertionError("cli train failed")
+        wall_s = _sync_s(t0)
+        launches = cuda_backup.ROUND_LAUNCHES
+        results["round_backup"]["launches_by_path"][
+            "flagship_iteration_cli"] = launches
+        results["backup_link"]["launches_by_path"][
+            "flagship_iteration_cli"] = cuda_backup.LAUNCHES
+        (run,) = Path(tmp).glob("run_*")
+        rows = [json.loads(line) for line in
+                (run / "logs" / "smoke" / "metrics.jsonl").read_text()
+                .splitlines()]
+        if [r["step"] for r in rows] != [0]:
+            raise AssertionError(f"steps {[r['step'] for r in rows]}")
+        m = rows[0]
+        want = JAX_METRIC_NAMES | {"checkpoint/seconds"} | {
+            f"selfplay/relabel_{k}" for k in RELABEL_STATS}
+        if set(m) - {"step"} != want:
+            raise AssertionError(f"metric names {sorted(m)}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"a non-finite metric: {m}")
+        if not 0 < m["selfplay/positions"] == m["replay/size"]:
+            raise AssertionError(f"{m['selfplay/positions']} positions, "
+                                 f"buffer {m['replay/size']}")
+        kept = sorted(p.name for p in (run / "checkpoints").iterdir())
+        if "it_000001" not in kept:
+            raise AssertionError(f"checkpoints: {kept}")
+        tree = ckpt.restore_checkpoint(str(run / "checkpoints" /
+                                           "it_000001"))
+        if tree["iteration"] != 1 or tree["replay"]["size"] != \
+                m["replay/size"]:
+            raise AssertionError("the checkpoint is not iteration 1's")
+    if launches <= 0 or launches % rounds or cuda_backup.LAUNCHES:
+        raise AssertionError(f"round kernel launched {launches} times (not "
+                             f"a positive multiple of {rounds}); "
+                             f"backup_link {cuda_backup.LAUNCHES} times")
+    parts = {k: m[f"{k}/seconds"]
+             for k in ("selfplay", "train", "eval", "checkpoint")}
+    results["iteration_cli"] = dict(
+        config="configs/flagship_run.json", iterations=1, wall_s=wall_s,
+        **{f"{k}_s": v for k, v in parts.items()},
+        metrics_sum_s=sum(parts.values()),
+        positions=m["selfplay/positions"], loss=m["train/loss"],
+        eval_elo=m["eval/elo"], eval_best_elo=m["eval/best_elo"],
+        eval_random_elo=m["eval/random_elo"],
+        promoted=m["eval/promoted"], checkpoints=kept,
+        round_backup_launches=launches,
+        searches=launches // rounds if cfg.mcts.num_simulations
+        == cfg.tournament.num_simulations else None)
+
+
 def gate_cuda_matches_cpu(results: dict) -> None:
     """A tiny float32 merged gate (two 1x16 nets and the random player, 6
     units of 3 games, Gumbel-8, tree reuse, temperature 0.5) on the card and
@@ -957,6 +1047,8 @@ def main() -> int:
             phase("flagship_gate", lambda: flagship_gate(results, carry))
             phase("checkpoint_roundtrip",
                   lambda: checkpoint_roundtrip(results, carry))
+        phase("flagship_iteration_cli",
+              lambda: flagship_iteration_cli(results))
         phase("cuda_vs_cpu", lambda: cuda_matches_cpu(results))
         if "traj" in carry:
             phase("learner_cuda_vs_cpu",
@@ -966,7 +1058,7 @@ def main() -> int:
 
     kernels = [results[k] for k in ("backup_link", "round_backup")
                if k in results]
-    for k in kernels:  # the main path: self-play batch, then the gate
+    for k in kernels:  # the main path: self-play, gate, CLI iteration
         k["launches"] = sum(k.get("launches_by_path", {}).values())
     if kernels:
         print(json.dumps({"kernels": kernels}))
@@ -982,6 +1074,8 @@ def main() -> int:
         print(json.dumps({"checkpoint": results["checkpoint"]}))
     if "pipeline_cli" in results:
         print(json.dumps({"pipeline_cli": results["pipeline_cli"]}))
+    if "iteration_cli" in results:
+        print(json.dumps({"iteration_cli": results["iteration_cli"]}))
     if "training" in results:
         tr = results["training"]
         parts = dict(selfplay_s=results["selfplay"]["seconds"],
@@ -993,6 +1087,8 @@ def main() -> int:
         whole = None if None in parts.values() else sum(parts.values())
         print(json.dumps({"training": {
             **tr, "iteration_parts": parts, "iteration_s": whole,
+            "iteration_cli_s": results.get("iteration_cli", {}).get(
+                "metrics_sum_s"),
             "learner_cuda_vs_cpu": results.get("learner_cuda_vs_cpu")}}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -35,7 +35,7 @@ UNITS = {"root": [(0, 1, 2, BLACK), (1, 0, 2, WHITE)],
 # 8 simulations over 2 considered actions: the searched root children have
 # children of their own with visits, so the reuse carry finds warm
 # grandchildren
-KW = dict(num_simulations=8, c_puct=1.0, temperature=1.0, max_depth=4,
+KW = dict(num_simulations=8, temperature=1.0, max_depth=4,
           max_moves=12, pass_slack=4, algorithm="gumbel",
           max_considered_actions=2)
 NUM_PAIRS = (KW["max_moves"] + KW["pass_slack"] + 1) // 2
@@ -83,7 +83,8 @@ def merged(request, nets, draws):
     jscores = jarena.play_units(jnet, (jvars, None), units,
                                 KEYS[:len(units)],
                                 random_mask=(False, True),
-                                tree_reuse=request.param, **KW)
+                                tree_reuse=request.param, c_puct=1.0,
+                                **KW)
     noise = draws[:len(units)]
     info = {}
     warm_visits = []

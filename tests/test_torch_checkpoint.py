@@ -127,6 +127,27 @@ def test_overwrite_replaces_atomically(tmp_path):
     assert torch.equal(tree["x"], torch.full((2,), 7.0))
 
 
+def test_interrupted_overwrite_keeps_the_old_checkpoint(tmp_path,
+                                                        monkeypatch):
+    """An interrupt between moving the old checkpoint aside and renaming the
+    new one into place puts the old one back."""
+    ckpt.save_checkpoint(str(tmp_path), 2, {"x": torch.ones(2)})
+    rename = os.rename
+
+    def interrupted(src, dst):
+        if os.path.basename(src).startswith(".tmp_"):
+            raise KeyboardInterrupt
+        rename(src, dst)
+
+    monkeypatch.setattr(os, "rename", interrupted)
+    with pytest.raises(KeyboardInterrupt):
+        ckpt.save_checkpoint(str(tmp_path), 2, {"x": torch.zeros(2)})
+    monkeypatch.setattr(os, "rename", rename)
+    assert sorted(os.listdir(tmp_path)) == ["it_000002"]
+    tree = ckpt.restore_checkpoint(ckpt.latest_checkpoint(str(tmp_path)))
+    assert torch.equal(tree["x"], torch.ones(2))
+
+
 def test_prune_keeps_newest(tmp_path):
     for it in (1, 2, 10, 3):
         ckpt.save_checkpoint(str(tmp_path), it, {"it": it})
