@@ -20,14 +20,15 @@ whose games all have no move at the scheduled colour skips its search, and
 the loop ends once every game is over. Neither changes a result, because
 the move mask already holds those games.
 
-Arena searches are Gumbel searches at ``gumbel_scale=0`` (deterministic;
-the move is sampled from the tempered improved policy). With
+Arena searches are deterministic: PUCT without root noise (the move is
+sampled from the visit counts at the tournament temperature) or Gumbel at
+``gumbel_scale=0`` (sampled from the tempered improved policy). With
 ``tree_reuse="root"`` each unit keeps, per searching side, its last search's
 tree stats and the two actions since, and seeds the next search from the
 grandchild (``tree.warm_stats_after``). Move sampling draws from one
 ``torch.Generator`` per unit, seeded from the tournament seed and the unit's
 index; ``sample_noise`` replaces those draws (the parity tests inject JAX's
-own). The PUCT side is not ported yet (ROADMAP.md queue 1 item 9).
+own).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from .config import TournamentConfig
 from .elo import ELORatingSystem
 from .env import bitboard as env
 from .mcts import gumbel as gumbel_lib
+from .mcts import search as search_lib
 from .mcts import tree as tree_lib
 from .mcts.search import resolve_device, sample_actions
 
@@ -76,24 +78,31 @@ def _score_a(final: env.EnvState, a_color: int) -> torch.Tensor:
                        torch.where(winner == 0, 0.5, 0.0))
 
 
-def _make_side_probs(*, num_simulations: int, temperature: float,
-                     max_depth: int, compat: bool, leaf_batch: int = 1,
-                     algorithm: str = "puct",
+def _make_side_probs(*, num_simulations: int, c_puct: float,
+                     temperature: float, max_depth: int, compat: bool,
+                     leaf_batch: int = 1, algorithm: str = "puct",
                      max_considered_actions: int = 16, c_visit: float = 50.0,
                      c_scale: float = 0.1, warm_discount: float = 1.0,
                      num_stages: int = 6, device=None) -> Callable:
-    """Policy for one searching side: a Gumbel search at ``gumbel_scale=0``
-    at the tournament temperature (``gumbel.play_probs``). The returned
-    callable ``side_probs(states, net, warm=None)`` gives ``(probs, stats)``,
-    ``stats`` the finished search's flat tree stats for the reuse carry."""
+    """Policy for one searching side at the tournament temperature: a PUCT
+    search without root noise (``probs_with_temperature`` of its visit
+    counts) or a Gumbel search at ``gumbel_scale=0``
+    (``gumbel.play_probs``). The returned callable ``side_probs(states,
+    net, warm=None)`` gives ``(probs, stats)``, ``stats`` the finished
+    search's flat tree stats for the reuse carry."""
     if algorithm not in ("puct", "gumbel"):
         raise ValueError(f"unknown search algorithm {algorithm!r}")
-    if algorithm == "puct":
-        raise NotImplementedError(
-            "PUCT arena search is not ported yet (ROADMAP.md queue 1 item "
-            "9); use algorithm='gumbel'")
 
     def side_probs(states: env.EnvState, net: nn.Module, warm=None):
+        if algorithm == "puct":
+            res = search_lib.run_search(
+                net, states, num_simulations=num_simulations,
+                c_puct=c_puct, dirichlet_alpha=0.3, dirichlet_epsilon=0.0,
+                max_depth=max_depth, compat=compat, add_noise=False,
+                num_stages=num_stages, leaf_batch=leaf_batch,
+                warm_root=warm, warm_discount=warm_discount, device=device)
+            return search_lib.probs_with_temperature(
+                res.visit_counts, temperature), res.tree.stats
         n = states.done.shape[0]
         gres = gumbel_lib.run_gumbel_search(
             net, states, num_simulations=num_simulations,
@@ -126,7 +135,8 @@ def _check_units(units: Sequence[Unit], num_models: int) -> None:
 
 @torch.no_grad()
 def play_units(nets: Sequence[Optional[nn.Module]], units: Sequence[Unit], *,
-               num_simulations: int, temperature: float, max_depth: int = 64, max_moves: int = 60,
+               num_simulations: int, temperature: float,
+               c_puct: float = 1.0, max_depth: int = 64, max_moves: int = 60,
                compat: bool = False, pass_slack: int = 16,
                leaf_batch: int = 1, algorithm: str = "puct",
                max_considered_actions: int = 16, c_visit: float = 50.0,
@@ -167,9 +177,9 @@ def play_units(nets: Sequence[Optional[nn.Module]], units: Sequence[Unit], *,
     side_probs = None
     if searching:
         side_probs = _make_side_probs(
-            num_simulations=num_simulations, temperature=temperature,
-            max_depth=max_depth, compat=compat, leaf_batch=leaf_batch,
-            algorithm=algorithm,
+            num_simulations=num_simulations, c_puct=c_puct,
+            temperature=temperature, max_depth=max_depth, compat=compat,
+            leaf_batch=leaf_batch, algorithm=algorithm,
             max_considered_actions=max_considered_actions, c_visit=c_visit,
             c_scale=c_scale, warm_discount=tree_reuse_discount,
             num_stages=num_stages, device=dev)
@@ -342,7 +352,8 @@ class Arena:
     def _play_kwargs(self) -> Dict[str, Any]:
         cfg = self.config
         return dict(num_simulations=cfg.num_simulations,
-                    temperature=cfg.temperature, compat=self.compat,
+                    c_puct=cfg.c_puct, temperature=cfg.temperature,
+                    compat=self.compat,
                     algorithm=cfg.algorithm,
                     max_considered_actions=cfg.max_considered_actions,
                     c_visit=cfg.c_visit, c_scale=cfg.c_scale,

@@ -30,8 +30,9 @@ import torch.nn.functional as F
 
 from ..env import bitboard as env
 from . import tree as tree_lib
-from .search import (_evaluate, _stage_bounds, expand_and_backup,
-                     probs_with_temperature, resolve_device)
+from .search import (_evaluate, _pick, check_on_device, descend,
+                     expand_and_backup, probs_with_temperature,
+                     resolve_device, stage_levels)
 
 A = env.NUM_ACTIONS
 _NEG = -1e30
@@ -96,10 +97,6 @@ def _masked_argmax(score: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, score, _NEG).argmax(-1)
 
 
-def _pick(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    return x.gather(-1, index.unsqueeze(-1)).squeeze(-1)
-
-
 class GumbelResult(NamedTuple):
     visit_counts: torch.Tensor  # [B, A] i32 fresh root child visit counts
     action_probs: torch.Tensor  # [B, A] improved policy (training target)
@@ -137,7 +134,6 @@ def _sim_round(net, trees: tree_lib.Tree, r: int, levels: int, L: int,
                ) -> tree_lib.Tree:
     """One simulation round: L schedule-masked root picks, a lockstep
     descent of ``levels`` levels, then evaluate/expand/back up."""
-    batch = trees.rows.shape[0]
     root_lg, root_done, root_row = root.legal, root.done, root.row
 
     # root phase
@@ -162,55 +158,17 @@ def _sim_round(net, trees: tree_lib.Tree, r: int, levels: int, L: int,
             ~root_done[:, None], F.one_hot(a, A).float(), 0.0)
         a0s.append(a)
         child0s.append(_pick(root_child, a).long())
-    a0 = torch.stack(a0s, -1)  # [B, L]
-    child0 = torch.stack(child0s, -1)
 
-    # level 0 lane state, then the lockstep descent
-    can0 = (~root_done)[:, None].expand(batch, L)
-    found = can0 & (child0 == 0)
-    finishing = found | ~can0
-    path_nodes = [torch.where(can0, 0, -1)]
-    path_actions = [torch.where(can0, a0, 0)]
-    path_tomove = [root_row[:, tree_lib.S_TO_MOVE][:, None].expand(batch, L)]
-    leaf = torch.zeros_like(a0)
-    leaf_action = torch.where(found, a0, -1)
-    eval_row = root_row[:, None, :].expand(batch, L, tree_lib.K)
-    alive = ~finishing
-    node = torch.where(alive, child0, 0)
-
-    for _ in range(1, levels):
-        row, srow = tree_lib.gather_node(trees, node)  # [B, L, K/S]
-        p, lg = tree_lib.decode_prior_legal(row)
-        done_n = row[..., tree_lib.S_DONE] > 0.5
-        visits, child = tree_lib.unpack_visits_child(
-            srow[..., tree_lib.VISITS_OFF:tree_lib.VISITS_OFF + A])
-        vsum = srow[..., tree_lib.VSUM_OFF:tree_lib.VSUM_OFF + A]
+    def select(row, p, lg, visits, vsum):
         sig = completed_q_sigma(visits, vsum, p, lg,
                                 row[..., tree_lib.S_VALUE], cv, cs)
         pi = torch.softmax(torch.where(lg, _logits(p, lg) + sig, _NEG), -1)
-        score_n = pi - visits / (1.0 + visits.sum(-1, keepdim=True))
-        a = _masked_argmax(score_n, lg)
-        child_idx = _pick(child, a).long()
+        return _masked_argmax(
+            pi - visits / (1.0 + visits.sum(-1, keepdim=True)), lg)
 
-        can_step = alive & ~done_n
-        found = can_step & (child_idx == 0)
-        path_nodes.append(torch.where(can_step, node, -1))
-        path_actions.append(torch.where(can_step, a, 0))
-        path_tomove.append(row[..., tree_lib.S_TO_MOVE])
-
-        finishing = found | (alive & done_n)
-        eval_row = torch.where(finishing[..., None], row, eval_row)
-        leaf = torch.where(found, node, leaf)
-        leaf_action = torch.where(found, a, leaf_action)
-        alive = alive & ~finishing
-        node = torch.where(alive, child_idx, node)
-
-    trow, _ = tree_lib.gather_node(trees, node)
-    eval_row = torch.where(alive[..., None], trow, eval_row)
-
-    pn = torch.stack(path_nodes, -1).reshape(batch, L * levels)
-    pa = torch.stack(path_actions, -1).reshape(batch, L * levels)
-    pt = torch.stack(path_tomove, -1).reshape(batch, L * levels)
+    pn, pa, pt, leaf, leaf_action, eval_row = descend(
+        trees, root_row, root_done, torch.stack(a0s, -1),
+        torch.stack(child0s, -1), levels, select)
     return expand_and_backup(net, trees, pn, pa, pt, leaf, leaf_action,
                              eval_row, r * L + 1, root.to_move, compat)
 
@@ -242,9 +200,7 @@ def run_gumbel_search(net, root_states: env.EnvState, *,
     ``visit_counts`` are fresh only.
     """
     dev = resolve_device(device)
-    if root_states.black.device != dev:
-        raise ValueError(f"root_states are on {root_states.black.device}, "
-                         f"expected {dev}")
+    check_on_device(root_states, dev)
     batch = root_states.to_move.shape[0]
     L = leaf_batch
     if L < 1 or num_simulations % L != 0:
@@ -287,13 +243,11 @@ def run_gumbel_search(net, root_states: env.EnvState, *,
         value=root_row[:, tree_lib.S_VALUE], to_move=root_states.to_move,
         schedule=table[m_eff].float(), warm_v=warm_v)
 
-    start = 0
-    for end in _stage_bounds(num_rounds, num_stages):
-        levels = max(1, min(levels_cap, end))
+    for start, end, levels in stage_levels(num_rounds, num_stages,
+                                           levels_cap):
         for r in range(start, end):
             trees = _sim_round(net, trees, r, levels, L, root, cv, cs,
                                compat)
-        start = end
 
     # outputs
     final_srow = trees.stats[:, :tree_lib.STRIDE]

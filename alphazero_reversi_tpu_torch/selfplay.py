@@ -1,16 +1,22 @@
 """Batched self-play data generation on the device.
 
-Port of ``alphazero_reversi_tpu/selfplay.py`` (the Gumbel branch).
-``num_games`` games advance in lockstep: every move slot runs one batched
-Gumbel search over all games, records the position, and steps every env.
-Where the JAX package scans over move slots inside one program, this is a
-Python loop; the batch-global tail skip becomes a host ``if`` per move.
+Port of ``alphazero_reversi_tpu/selfplay.py``. ``num_games`` games advance
+in lockstep: every move slot runs one batched search over all games,
+records the position, and steps every env. Where the JAX package scans over
+move slots inside one program, this is a Python loop; the batch-global tail
+skip becomes a host ``if`` per move.
+
+``algorithm="puct"`` searches with root Dirichlet noise, samples the move
+from the visit counts at the schedule's temperature (``temp_init`` before
+move ``temp_threshold``, ``temp_final`` after) and records the visit
+distribution (tau = 1) as the policy target. ``algorithm="gumbel"`` plays
+the sequential-halving winner and records the improved policy.
 
 Value targets are the final outcome from the perspective of the player to
 move at each position; games still live at ``max_moves`` are scored by piece
 count. With ``tree_reuse="root"`` the played child's root-edge statistics
-seed the next move's search (zeros at move 0). The PUCT branch is not
-ported yet.
+seed the next move's search (zeros at move 0), shrunk by
+``tree_reuse_discount``.
 
 After self-play, ``relabel_exact_values_with_stats`` replaces the value
 targets of late positions with the native solver's exact outcome: only the
@@ -31,6 +37,7 @@ from .config import MCTSConfig, SelfPlayConfig
 from .env import bitboard as env
 from .env import endgame as endgame_lib
 from .mcts import gumbel as gumbel_lib
+from .mcts import search as search_lib
 from .mcts import tree as tree_lib
 from .mcts.search import resolve_device
 
@@ -72,20 +79,21 @@ def play_games(net, *, num_games: int, num_simulations: int, c_puct: float,
                init_states: Optional[env.EnvState] = None,
                generator: Optional[torch.Generator] = None,
                gumbel_noise: Optional[torch.Tensor] = None,
+               log_gamma: Optional[torch.Tensor] = None,
+               sample_noise: Optional[torch.Tensor] = None,
                device=None) -> Trajectory:
     """Play ``num_games`` games in lockstep on ``device`` (default CUDA;
     the net must already be there).
 
     The arguments mirror the JAX ``play_games`` (``search_kwargs`` builds
-    them from configs); the PUCT-only ones are accepted for that reason.
-    ``gumbel_noise`` ([max_moves, B, A]) replaces the per-move Gumbel draws;
-    otherwise they come from ``generator`` on the device.
+    them from configs). Every draw comes from ``generator`` on the device
+    unless injected, per move slot: ``gumbel_noise`` ``[max_moves, B, A]``
+    (the Gumbel search's root draw), ``log_gamma`` ``[max_moves, B, A]``
+    (PUCT's raw log-gamma draw behind the root Dirichlet noise) and
+    ``sample_noise`` ``[max_moves, B, A]`` (the Gumbel draw that samples
+    PUCT's move, as ``search.sample_actions`` takes it).
     """
-    if algorithm == "puct":
-        raise NotImplementedError(
-            "PUCT self-play is not ported yet (ROADMAP.md queue 1 item 9); "
-            "use algorithm='gumbel'")
-    if algorithm != "gumbel":
+    if algorithm not in ("puct", "gumbel"):
         raise ValueError(f"unknown search algorithm {algorithm!r}")
     if tree_reuse not in ("off", "root"):
         raise ValueError(f"unknown tree_reuse mode {tree_reuse!r}")
@@ -111,22 +119,38 @@ def play_games(net, *, num_games: int, num_simulations: int, c_puct: float,
                             torch.full((b,), -1, dtype=torch.int32,
                                        device=dev)))
             continue
-        gres = gumbel_lib.run_gumbel_search(
-            net, states, num_simulations=num_simulations,
-            max_considered_actions=max_considered_actions,
-            c_visit=c_visit, c_scale=c_scale, gumbel_scale=1.0,
-            max_depth=max_depth, compat=compat, num_stages=num_stages,
-            leaf_batch=leaf_batch, warm_root=warm,
-            warm_discount=tree_reuse_discount,
-            gumbel=None if gumbel_noise is None else gumbel_noise[t],
-            generator=generator, device=dev)
-        actions = gres.chosen_action
+        if algorithm == "gumbel":
+            res = gumbel_lib.run_gumbel_search(
+                net, states, num_simulations=num_simulations,
+                max_considered_actions=max_considered_actions,
+                c_visit=c_visit, c_scale=c_scale, gumbel_scale=1.0,
+                max_depth=max_depth, compat=compat, num_stages=num_stages,
+                leaf_batch=leaf_batch, warm_root=warm,
+                warm_discount=tree_reuse_discount,
+                gumbel=None if gumbel_noise is None else gumbel_noise[t],
+                generator=generator, device=dev)
+            actions = res.chosen_action
+        else:
+            res = search_lib.run_search(
+                net, states, num_simulations=num_simulations,
+                c_puct=c_puct, dirichlet_alpha=dirichlet_alpha,
+                dirichlet_epsilon=dirichlet_epsilon, max_depth=max_depth,
+                compat=compat, add_noise=True, num_stages=num_stages,
+                leaf_batch=leaf_batch, warm_root=warm,
+                warm_discount=tree_reuse_discount,
+                log_gamma=None if log_gamma is None else log_gamma[t],
+                generator=generator, device=dev)
+            temp = temp_init if t < temp_threshold else temp_final
+            actions = search_lib.sample_actions(
+                search_lib.probs_with_temperature(res.visit_counts, temp),
+                generator=generator,
+                noise=None if sample_noise is None else sample_noise[t])
         records.append((env.canonical_planes(states, compat=compat),
-                        gres.action_probs, states.to_move, live,
+                        res.action_probs, states.to_move, live,
                         torch.where(live, actions, -1)))
         new_states, _ = env.step(states, actions, compat=compat)
         if warm is not None:
-            wv, ws = tree_lib.root_child_warm_stats(gres.tree, actions)
+            wv, ws = tree_lib.root_child_warm_stats(res.tree, actions)
             lc = live[:, None]
             warm = (torch.where(lc, wv, 0.0), torch.where(lc, ws, 0.0))
         # finished games hold their position

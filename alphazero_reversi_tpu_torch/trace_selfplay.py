@@ -1,8 +1,9 @@
-"""Where a flagship self-play move, a flagship SGD step and a promotion
-gate search spend their time on the card.
+"""Where a flagship self-play move, a flagship SGD step, a promotion
+gate search and the default config's PUCT rounds spend their time on the
+card.
 
     python -m alphazero_reversi_tpu_torch.trace_selfplay [--moves 2]
-        [--sgd-steps 16] [--gate-searches 4]
+        [--sgd-steps 16] [--gate-searches 4] [--puct-rounds 60]
 
 Plays one warm-up move of the flagship self-play batch
 (``configs/flagship_run.json``, 1024 games, random weights), times
@@ -25,6 +26,14 @@ tournament settings, Gumbel-32 at ``gumbel_scale=0`` and ``max_depth`` 64
 over one search group of 10 games, from positions 8 random plies in): one
 warm-up search, ``--gate-searches`` timed, as many traced; the same
 numbers per search.
+
+Then the default config's PUCT search (``puct``: ``configs/default_config
+.json``, Dirichlet noise, the same random weights) at its two widths, 1024
+games (self-play) and 1 (``cli analyze``): a search of ``--puct-rounds``
+rounds in one stage at ``max_depth`` 64, so every round unrolls
+``min(60, rounds)`` levels as the default's 400-simulation search does;
+one warm-up search, one timed, one traced with CUDA activity only; the
+same numbers per round.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from . import arena
 from . import learner as learner_lib
 from . import replay, selfplay
 from .env import bitboard as env
+from .mcts import search as search_lib
 from .mcts.search import sample_actions
 from .config import Config
 from .models import resnet
@@ -119,7 +129,8 @@ def trace_gate(cfg: Config, net, searches: int, games: int = 10) -> dict:
     few random plies into the game."""
     tc = cfg.tournament
     side = arena._make_side_probs(
-        num_simulations=tc.num_simulations, temperature=tc.temperature,
+        num_simulations=tc.num_simulations, c_puct=tc.c_puct,
+        temperature=tc.temperature,
         max_depth=64, compat=cfg.env_compat, algorithm=tc.algorithm,
         max_considered_actions=tc.max_considered_actions,
         c_visit=tc.c_visit, c_scale=tc.c_scale, device=torch.device("cuda"))
@@ -156,11 +167,54 @@ def trace_gate(cfg: Config, net, searches: int, games: int = 10) -> dict:
             "top_kernels_ms": s["top_kernels_ms"]}
 
 
+def trace_puct(rounds: int) -> dict:
+    """PUCT rounds of the default config at 1024 games and at 1."""
+    cfg = Config.load(str(ROOT / "configs" / "default_config.json"))
+    torch.manual_seed(cfg.seed)
+    net = resnet.build_network(cfg.model).cuda()
+    m = cfg.mcts
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    kw = dict(num_simulations=rounds, c_puct=m.c_puct,
+              dirichlet_alpha=m.dirichlet_alpha,
+              dirichlet_epsilon=m.dirichlet_epsilon, max_depth=m.max_depth,
+              num_stages=1, generator=gen)
+    out = {"config": "configs/default_config.json", "rounds": rounds,
+           "levels": min(m.max_depth, rounds, 60)}
+    for name, games in (("selfplay", cfg.self_play.num_parallel_games),
+                        ("analyze", 1)):
+        roots = env.initial_state((games,), device="cuda")
+        search_lib.run_search(net, roots, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        search_lib.run_search(net, roots, **kw)
+        torch.cuda.synchronize()
+        plain = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            search_lib.run_search(net, roots, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        totals, s = _kernel_summary(prof, wall, plain, rounds)
+        backup = [v for k, v in totals.items() if "backup_link_kernel" in k]
+        out[name] = {
+            "games": games, "wall_ms_per_round": s["wall_s"] / rounds * 1e3,
+            "profiled_wall_ms_per_round": s["profiled_wall_s"] / rounds
+            * 1e3,
+            "device_busy_ms_per_round": s["device_busy_s"] / rounds * 1e3,
+            "device_idle_share": s["device_idle_share"],
+            "kernels_per_round": s["kernels_per_unit"],
+            "backup_us_per_launch": (backup[0][1] / backup[0][0]
+                                     if backup else None),
+            "top_kernels_ms": s["top_kernels_ms"]}
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--moves", type=int, default=2)
     parser.add_argument("--sgd-steps", type=int, default=16)
     parser.add_argument("--gate-searches", type=int, default=4)
+    parser.add_argument("--puct-rounds", type=int, default=60)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trace_selfplay needs a CUDA device")
@@ -203,6 +257,7 @@ def main() -> None:
         "top_kernels_ms": s["top_kernels_ms"],
         "sgd": trace_sgd(cfg, net, traj, args.sgd_steps),
         "gate": trace_gate(cfg, net, args.gate_searches),
+        "puct": trace_puct(args.puct_rounds),
     }))
 
 

@@ -16,7 +16,10 @@ Phases (each raises on failure; the script exits 1 if any failed):
    which imports no JAX), check a captured-graph replay, and time each:
    device time per launch from a replayed CUDA graph of 200 launches, the
    wrapper's issue rate back to back, the plain version, one library call,
-   and the bound;
+   and the bound; ``azr_round_backup`` also at the default config's PUCT
+   shapes (N=401, 60 levels a lane: B=1024 self-play, B=1 ``analyze``, and
+   B=64 at L=4 with forced in-round duplicates), where P > 32 takes the
+   kernel's stepwise path;
 3. ``flagship_selfplay``: one flagship self-play batch
    (``configs/flagship_run.json``: 1024 games, Gumbel-32, 4 stages, tree
    reuse, 60 moves, the 5x128 bf16 ResNet with seeded random weights);
@@ -36,10 +39,10 @@ Phases (each raises on failure; the script exits 1 if any failed):
    best, replay and generators equal;
 7. ``flagship_iteration_cli``: one whole flagship iteration through
    ``cli.main(["train", "-c", "configs/flagship_run.json", "--iterations",
-   "1", ...])``, everything built by the pipeline: the metrics row, the
+   "1", ...])`` with the simulations cut (self-play 32 -> 16, gate
+   32 -> 8), everything built by the pipeline: the metrics row, the
    checkpoint of iteration 1, and one ``azr_round_backup`` launch per
-   search round; its own phase seconds stand beside the sum of the
-   separately timed phases 3-6;
+   search round;
 8. ``cuda_vs_cpu``: a small float32 self-play batch on the card and on the
    CPU with the same weights and Gumbel draws (TF32 off): actions and
    trajectories must agree (the CPU path is the one the CPU tests hold
@@ -52,14 +55,29 @@ Phases (each raises on failure; the script exits 1 if any failed):
 11. ``pipeline_cli``: ``cli.main(["train", ...])`` for 2 iterations, then
     ``cli.main(["continue", ...])`` for a third, at a tiny config
     (``tests/torch_configs.py``): iteration counter, metric names, one
-    checkpoint per iteration, pruning.
+    checkpoint per iteration, pruning;
+12. ``default_selfplay``: ``configs/default_config.json`` as written (1024
+    games, PUCT-400 with Dirichlet noise, the temperature schedule,
+    max_depth 64, the 5x128 bf16 net), cut to 3 move slots: 400 fresh
+    visits on every live root, legal moves, 400 ``azr_round_backup``
+    launches a slot, kernel launches per 60-level round (profiled);
+13. ``default_iteration_cli``: ``cli train`` for one iteration and
+    ``continue`` for a second at the default config (PUCT self-play and
+    the PUCT gate), cut in games, simulations and gate rounds;
+14. ``puct_cuda_vs_cpu``: a float32 PUCT search (leaf_batch 4, injected
+    noise, warm root) and a small PUCT merged gate on the card and on the
+    CPU: visit counts and per-unit scores equal;
+15. ``host_play``: ``import-checkpoint`` of a reference-format ``.pth``,
+    ``analyze`` at 400 simulations, ``analyze --solve 14``, ``play`` driven
+    through stdin for four agent moves, and a transposition-table hit.
 
 Prints the ``kernels``, ``selfplay``, ``cuda_vs_cpu``, ``gate``,
-``checkpoint``, ``pipeline_cli``, ``iteration_cli`` and ``training`` JSON
-lines (``training.iteration_s`` sums the separately timed phases 3-6;
-``iteration_cli_s`` is the pipeline's own iteration from phase 7), the
-card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
+``checkpoint``, ``pipeline_cli``, ``iteration_cli``, ``default_selfplay``,
+``default_iteration_cli``, ``puct_cuda_vs_cpu``, ``host_play`` and
+``training`` JSON lines (``training.iteration_s`` sums the separately
+timed phases 3-6; ``iteration_cli_s`` is the pipeline's own, cut iteration
+from phase 7), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -350,13 +368,21 @@ def _time_round(t: dict, slot0: int) -> dict:
     plain_ms = _time_ms(
         lambda: cuda_backup.round_backup_reference(*args), 200)
     # library yardstick: one scatter_add_ over the round's flat updates
+    # (signs, per-lane values, slots and the in-round duplicate mask made
+    # beforehand)
     b, m = t["stats"].shape
-    sign = torch.where(t["pt"] == t["eval_tomove"].float(), 1.0, -1.0)
-    link_ok = t["leaf_acts"] >= 0  # L=1: no in-round duplicates
+    L = t["leaves"].shape[1]
+    levels = t["pn"].shape[1] // L
+    sign = torch.where(t["pt"] == t["eval_tomove"].float().repeat_interleave(
+        levels, 1), 1.0, -1.0)
+    same = (t["leaves"][:, :, None] == t["leaves"][:, None, :]) & (
+        t["leaf_acts"][:, :, None] == t["leaf_acts"][:, None, :])
+    earlier = torch.ones(L, L, dtype=torch.bool, device=dev).tril(-1)
+    link_ok = (t["leaf_acts"] >= 0) & ~(same & earlier).any(-1)
+    slots = slot0 + torch.arange(L, device=dev).expand_as(t["leaves"])
     idx, upd = _scatter_yardstick(
-        t["pn"], t["pa"], sign * t["value"], t["leaves"],
-        t["leaf_acts"].clamp_min(0), torch.full_like(t["leaves"], slot0),
-        link_ok, m)
+        t["pn"], t["pa"], sign * t["value"].repeat_interleave(levels, 1),
+        t["leaves"], t["leaf_acts"].clamp_min(0), slots, link_ok, m)
     padded = torch.zeros(b, m + 1, device=dev)
     library_ms = _time_ms(lambda: padded.scatter_add_(1, idx, upd), 200)
     # bound: every argument read once (int64 indices, pt, the [B, L] and [B]
@@ -890,7 +916,8 @@ def flagship_iteration_cli(results: dict) -> None:
     ``cli.main(["train", "-c", "configs/flagship_run.json", "--iterations",
     "1", "--run-dir", <tmp>])``: self-play of 1024 games, relabel, save,
     replay insert, SGD, the merged gate of current, best and random, and
-    the checkpoint, all built by the pipeline itself. Checks the one
+    the checkpoint, all built by the pipeline itself, with the simulations
+    cut for time (self-play 32 -> 16, gate 32 -> 8). Checks the one
     metrics row (the JAX pipeline's names plus ``checkpoint/seconds``,
     finite, the buffer holding the new positions), the checkpoint of
     iteration 1, and that every search round launched ``azr_round_backup``
@@ -905,12 +932,18 @@ def flagship_iteration_cli(results: dict) -> None:
     from alphazero_reversi_tpu_torch.config import Config
     from alphazero_reversi_tpu_torch.mcts import cuda_backup
 
-    cfg_path = ROOT / "configs" / "flagship_run.json"
-    cfg = Config.load(str(cfg_path))
+    cfg = Config.load(str(ROOT / "configs" / "flagship_run.json"))
+    # cut for time (phases 3-6 run the flagship at full depth): a search
+    # costs host time per round at any batch, so the simulations are cut,
+    # self-play 32 -> 16 and the gate 32 -> 8 (the gate's game count would
+    # not matter: its units share each half-ply's searches)
+    cfg.mcts.num_simulations, cfg.tournament.num_simulations = 16, 8
     # leaf_batch 1: one round a simulation, in self-play and in the gate
     rounds = math.gcd(cfg.mcts.num_simulations,
                       cfg.tournament.num_simulations)
     with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = Path(tmp) / "flagship_run_cut.json"
+        cfg.save(str(cfg_path))
         torch.cuda.synchronize()
         cuda_backup.LAUNCHES = cuda_backup.ROUND_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -954,7 +987,9 @@ def flagship_iteration_cli(results: dict) -> None:
     parts = {k: m[f"{k}/seconds"]
              for k in ("selfplay", "train", "eval", "checkpoint")}
     results["iteration_cli"] = dict(
-        config="configs/flagship_run.json", iterations=1, wall_s=wall_s,
+        config="configs/flagship_run.json",
+        cut="mcts.num_simulations 32 -> 16, tournament.num_simulations "
+        "32 -> 8", iterations=1, wall_s=wall_s,
         **{f"{k}_s": v for k, v in parts.items()},
         metrics_sum_s=sum(parts.values()),
         positions=m["selfplay/positions"], loss=m["train/loss"],
@@ -1002,6 +1037,445 @@ def gate_cuda_matches_cpu(results: dict) -> None:
                                        scores_equal=True)
 
 
+PUCT_SHAPES = (  # (entry, batch, nodes, levels, links, forced duplicates)
+    ("round_backup_puct", 1024, 401, 60, 1, False),
+    ("round_backup_analyze", 1, 401, 60, 1, False),
+    ("round_backup_dups", 64, 401, 60, 4, True))
+
+
+def check_round_kernel_puct(results: dict) -> None:
+    """azr_round_backup at the default config's PUCT-400 shapes: N=401 and
+    60 path levels a lane (max_depth 64: every stage unrolls 60 levels), so
+    P = 60 L > 32 takes the kernel's stepwise path. Default self-play
+    (B=1024, L=1) and ``analyze`` (B=1) must equal the plain version on the
+    CPU and on the card bit for bit; B=64 at L=4 with lane 1 repeating lane
+    0 in every game (in-round duplicates, linked once) the CPU plain
+    version. Each shape is timed as the flagship's is."""
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+    from torch_round_inputs import round_inputs
+
+    dev = torch.device("cuda")
+    outs = ("stats", "root_visit", "root_vsum")
+    for seed, (name, batch, nodes_n, levels, links, dups) in enumerate(
+            PUCT_SHAPES):
+        d = round_inputs(np.random.default_rng(20 + seed), batch, nodes_n,
+                         levels, links, dups=dups)
+        got = _round_tensors(d, dev)
+        _round_call(cuda_backup.round_backup, got)
+        cpu = _round_tensors(d, "cpu")
+        _round_call(cuda_backup.round_backup_reference, cpu)
+        card = None
+        if links == 1:
+            card = _round_tensors(d, dev)
+            _round_call(cuda_backup.round_backup_reference, card)
+        torch.cuda.synchronize()
+        max_err = 0.0
+        for k in outs:
+            max_err = max(max_err, (got[k].cpu() - cpu[k]).abs().max().item())
+            if not torch.equal(got[k].cpu(), cpu[k]) or (
+                    card is not None and not torch.equal(got[k], card[k])):
+                raise AssertionError(f"round kernel != plain version in {k} "
+                                     f"at {name} (B={batch}, L={links}, "
+                                     f"levels={levels})")
+        del cpu, card
+        results[name] = dict(
+            name=name, route="cuda", source=SOURCE, replaces=REPLACES,
+            entry="azr_round_backup", main_path=name != "round_backup_dups",
+            shape=f"B={batch} N={nodes_n} levels={levels} L={links}"
+            + (" lane 1 = lane 0" if dups else ""),
+            exact_cpu=True, exact_card=links == 1, max_abs_err=max_err,
+            **_time_round(_round_tensors(d, dev), d["slot0"]),
+            launches_by_path={})
+
+
+def default_selfplay(results: dict) -> None:
+    """``configs/default_config.json`` as written: 1024 games, PUCT-400,
+    c_puct 1, Dirichlet alpha 0.03 / epsilon 0.25, the temperature
+    schedule, max_depth 64, 6 stages, leaf_batch 1, the 5x128 bf16 ResNet
+    with random weights from the config's seed; cut to 3 move slots (each
+    its own ``play_games`` call from the last one's states, so each is
+    timed; the first also warms up). Every search must give each live root
+    400 fresh visits, every round launch ``azr_round_backup`` once, every
+    played move be legal. A profiled 60-round search at the same width and
+    depth counts the kernel launches a round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from alphazero_reversi_tpu_torch import selfplay
+    from alphazero_reversi_tpu_torch.config import Config
+    from alphazero_reversi_tpu_torch.env import bitboard as env
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+    from alphazero_reversi_tpu_torch.mcts import search
+    from alphazero_reversi_tpu_torch.models import resnet
+
+    cfg = Config.load(str(ROOT / "configs" / "default_config.json"))
+    mc = cfg.mcts
+    if (mc.algorithm, mc.num_simulations, mc.max_depth, mc.num_stages,
+            mc.batch_size) != ("puct", 400, 64, 6, 1):
+        raise AssertionError(f"default config changed: {mc}")
+    torch.manual_seed(cfg.seed)
+    net = resnet.build_network(cfg.model).cuda()
+    kw = selfplay.search_kwargs(mc, cfg.self_play, cfg.env_compat)
+    games, slots = cfg.self_play.num_parallel_games, 3
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    searches = []
+    real = search.run_search
+
+    def recording(*args, **kwargs):
+        res = real(*args, **kwargs)
+        searches.append(res.visit_counts.sum(-1))
+        return res
+
+    states = env.initial_state((games,), device="cuda")
+    slot_s, actions = [], []
+    selfplay.search_lib.run_search = recording
+    try:
+        torch.cuda.synchronize()
+        cuda_backup.ROUND_LAUNCHES = 0
+        for _ in range(slots):
+            t0 = time.perf_counter()
+            traj = selfplay.play_games(net, num_games=games, generator=gen,
+                                       init_states=states,
+                                       **{**kw, "max_moves": 1})
+            slot_s.append(_sync_s(t0))
+            if not traj.valid.all():
+                raise AssertionError("a game ended in the opening")
+            states = traj.final_state
+            actions.append(traj.actions[0])
+    finally:
+        selfplay.search_lib.run_search = real
+    launches = cuda_backup.ROUND_LAUNCHES
+    results["round_backup_puct"]["launches_by_path"]["default_selfplay"] = \
+        launches
+    if launches != 400 * slots:
+        raise AssertionError(f"round kernel launched {launches} times for "
+                             f"{slots} searches of 400 rounds")
+    if not all(bool((v == 400).all()) for v in searches):
+        raise AssertionError("a live root's fresh visits do not sum to 400")
+    s = env.initial_state((games,))
+    for act in actions:
+        s, ok = env.step(s, act.cpu(), compat=cfg.env_compat)
+        if not bool(ok.all()):
+            raise AssertionError("an illegal move was played")
+    for x, y in zip(s, states):
+        if not torch.equal(x, y.cpu()):
+            raise AssertionError("replayed states differ")
+    if not (torch.isfinite(traj.policy).all() and torch.isfinite(
+            traj.planes).all()):
+        raise AssertionError("non-finite self-play output")
+
+    # launches per round at 60 levels: 60 rounds of one stage, 60 levels
+    roots = env.initial_state((games,), device="cuda")
+    run = dict(num_simulations=60, c_puct=mc.c_puct,
+               dirichlet_alpha=mc.dirichlet_alpha,
+               dirichlet_epsilon=mc.dirichlet_epsilon, max_depth=64,
+               num_stages=1, generator=gen)
+    search.run_search(net, roots, **run)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        search.run_search(net, roots, **run)
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    per_slot = sum(slot_s[1:]) / (slots - 1)
+    results["default_selfplay"] = dict(
+        config="configs/default_config.json", games=games,
+        cut="max_moves 60 -> 3 move slots (3 play_games calls of 1 slot)",
+        slot_s=slot_s, s_per_move_slot=per_slot,
+        moves_per_s=games / per_slot,
+        round_backup_launches=launches, round_backup_per_slot=launches //
+        slots, kernels_per_round_60_levels=kernels / 60,
+        batch_60_slots_s_extrapolated=60 * per_slot)
+
+
+def default_iteration_cli(results: dict) -> None:
+    """``cli train`` for one iteration on ``configs/default_config.json``
+    at its 5x128 net, then ``continue`` for a second: PUCT self-play with
+    Dirichlet noise, relabel-free training, and the PUCT gate (per-round
+    tournament of current, best and random). Cut for time: 32 games (the
+    SGD steps follow: ceil(positions / 128)), mcts.num_simulations 400 ->
+    8, tournament.num_simulations 400 -> 4, tournament.rounds 10 -> 1.
+    Checks the metrics rows, the checkpoints and that rounds went through
+    azr_round_backup."""
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch import cli
+    from alphazero_reversi_tpu_torch.config import Config
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+
+    cfg = Config.load(str(ROOT / "configs" / "default_config.json"))
+    cuts = {"self_play.num_games": 32, "self_play.num_parallel_games": 32,
+            "mcts.num_simulations": 8, "tournament.num_simulations": 4,
+            "tournament.rounds": 1}
+    cfg.self_play.num_games = cfg.self_play.num_parallel_games = 32
+    cfg.mcts.num_simulations = 8
+    cfg.tournament.num_simulations, cfg.tournament.rounds = 4, 1
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.training.checkpoint_dir = str(Path(tmp) / "checkpoints")
+        cfg.logging.log_dir = str(Path(tmp) / "logs")
+        cfg.self_play.save_dir = str(Path(tmp) / "self_play_data")
+        cfg.tournament.output_dir = str(Path(tmp) / "tournament")
+        cfg.logging.use_tensorboard = False
+        cfg_path = str(Path(tmp) / "config.json")
+        cfg.save(cfg_path)
+        seconds = {}
+        torch.cuda.synchronize()
+        cuda_backup.ROUND_LAUNCHES = 0
+        for command, total in (("train", "1"), ("continue", "2")):
+            t0 = time.perf_counter()
+            if cli.main([command, "-c", cfg_path, "--iterations", total,
+                         "--run-name", "default"]) != 0:
+                raise AssertionError(f"cli {command} failed")
+            seconds[command] = _sync_s(t0)
+        launches = cuda_backup.ROUND_LAUNCHES
+        rows = [json.loads(line) for line in
+                (Path(tmp) / "logs" / "default" / "metrics.jsonl")
+                .read_text().splitlines()]
+        if [r["step"] for r in rows] != [0, 1]:
+            raise AssertionError(f"steps {[r['step'] for r in rows]}")
+        for r in rows:
+            if not all(np.isfinite(v) for v in r.values()):
+                raise AssertionError(f"a non-finite metric: {r}")
+        tree = ckpt.restore_checkpoint(
+            ckpt.latest_checkpoint(cfg.training.checkpoint_dir))
+        if tree["iteration"] != 2:
+            raise AssertionError(f"iteration {tree['iteration']}")
+    # every search: 8 (self-play) or 4 (gate) rounds, one launch each
+    if launches <= 0 or launches % 4:
+        raise AssertionError(f"round kernel launched {launches} times")
+    results["round_backup_puct"]["launches_by_path"][
+        "default_iteration_cli (B=32 self-play, gate)"] = launches
+    results["default_iteration_cli"] = dict(
+        config="configs/default_config.json", cuts=cuts, iterations=2,
+        train_s=seconds["train"], continue_s=seconds["continue"],
+        round_backup_launches=launches,
+        rows=[{k: r[k] for k in ("selfplay/positions", "selfplay/seconds",
+                                 "train/seconds", "train/loss",
+                                 "eval/seconds", "eval/elo",
+                                 "eval/promoted", "checkpoint/seconds")}
+              for r in rows])
+
+
+def puct_cuda_matches_cpu(results: dict) -> None:
+    """A float32 PUCT search (1x16 net, 8 games, PUCT-16, leaf_batch 4,
+    injected log-gamma draws, a warm root at discount 0.25) and a small
+    PUCT merged gate (two 1x16 nets and random, 6 units of 3 games,
+    PUCT-8, tree reuse at discount 0.5, injected sampling draws) on the
+    card and on the CPU, TF32 off: visit counts and per-unit scores
+    equal."""
+    from alphazero_reversi_tpu_torch import arena
+    from alphazero_reversi_tpu_torch.config import ModelConfig
+    from alphazero_reversi_tpu_torch.env import bitboard as env
+    from alphazero_reversi_tpu_torch.mcts import search
+    from alphazero_reversi_tpu_torch.models import resnet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(6)
+    mcfg = ModelConfig(num_res_blocks=1, num_filters=16,
+                       compute_dtype="float32")
+    net = resnet.build_network(mcfg)
+    rng = np.random.default_rng(7)
+    roots = env.initial_state((8,))
+    legal = env.legal_action_mask(roots)
+    wv = torch.where(legal, torch.from_numpy(rng.integers(0, 6, (8, 65))),
+                     0).float()
+    log_gamma = torch.from_numpy(rng.normal(0, 5, (8, 65)).astype(
+        np.float32))
+    kw = dict(num_simulations=16, c_puct=1.0, dirichlet_alpha=0.03,
+              dirichlet_epsilon=0.25, max_depth=16, leaf_batch=4,
+              warm_discount=0.25)
+    cpu = search.run_search(net, roots, warm_root=(wv, 0.3 * wv),
+                            log_gamma=log_gamma, device="cpu", **kw)
+    gpu = search.run_search(
+        copy.deepcopy(net).cuda(), env.EnvState(*(t.cuda() for t in roots)),
+        warm_root=(wv.cuda(), 0.3 * wv.cuda()), log_gamma=log_gamma.cuda(),
+        **kw)
+    if not torch.equal(gpu.visit_counts.cpu(), cpu.visit_counts):
+        raise AssertionError("card vs CPU PUCT visit counts differ")
+    value_err = (gpu.root_value.cpu() - cpu.root_value).abs().max().item()
+
+    nets = [net, resnet.build_network(mcfg), None]
+    units = [(i, j, 3, c) for i, j in ((0, 1), (0, 2), (1, 2))
+             for c in (env.BLACK, env.WHITE)]
+    gkw = dict(num_simulations=8, temperature=0.5, algorithm="puct",
+               c_puct=1.5, tree_reuse="root", tree_reuse_discount=0.5)
+    pairs = (60 + 16 + 1) // 2
+    noise = [torch.from_numpy(np.random.default_rng(30 + u).gumbel(
+        size=(2 * pairs, 3, 65)).astype(np.float32)) for u in range(6)]
+    cpu_scores = arena.play_units(nets, units, sample_noise=noise,
+                                  device="cpu", **gkw)
+    gpu_scores = arena.play_units(
+        [n if n is None else copy.deepcopy(n).cuda() for n in nets], units,
+        sample_noise=[x.cuda() for x in noise], **gkw)
+    for u, (x, y) in enumerate(zip(gpu_scores, cpu_scores)):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"card vs CPU PUCT gate: unit {u} scores "
+                                 f"{x} != {y}")
+    results["puct_cuda_vs_cpu"] = dict(
+        search="8 games PUCT-16 leaf_batch 4 warm 0.25 injected noise",
+        visits_equal=True, root_value_max_abs=value_err,
+        gate="6 units x 3 games PUCT-8 reuse 0.5", scores_equal=True)
+
+
+class _ScriptedStdin:
+    """``cli play``'s standard input, written as the game goes: it reads
+    the agent's moves from what the command printed, keeps its own board,
+    answers with the first legal move, and sends 'q' once the agent has
+    moved ``agent_moves`` times."""
+
+    def __init__(self, out, agent_moves: int):
+        from alphazero_reversi_tpu_torch.env.game import Board
+
+        self.out, self.left = out, agent_moves
+        self.board, self.read = Board(), 0
+        self.lines = []
+
+    def readline(self) -> str:
+        from alphazero_reversi_tpu_torch import cli
+
+        text = self.out.getvalue()
+        for line in text[self.read:].splitlines():
+            if line.startswith("agent plays "):
+                r, c = cli._parse_move_token(line.split()[2])
+                if not self.board.make_move(r, c):
+                    raise AssertionError(f"agent move {line!r} is illegal")
+                self.left -= 1
+        self.read = len(text)
+        if self.left <= 0 or self.board.game_over:
+            token = "q"
+        else:
+            moves = self.board.get_valid_moves()
+            r, c = moves[0]
+            self.board.make_move(r, c)
+            token = f"{chr(ord('a') + c)}{r + 1}"
+        self.lines.append(token)
+        return token + "\n"
+
+
+def host_play(results: dict) -> None:
+    """The host play commands on the card, at the default config: the
+    seeded 5x128 net written as a reference-format .pth
+    (``interop.export_torch_checkpoint``) and ``import-checkpoint``-ed;
+    ``analyze -d`` at 400 simulations after d3 c5 (timed; 400
+    azr_round_backup launches at B=1); ``analyze --solve 14`` on a position
+    12 empties from the end (the exact path, its disc differential checked
+    against the solver); ``play -d --sims 32`` driven through stdin for four
+    agent moves; and a repeated ``MCTS.get_action_probs`` query that must
+    hit the transposition table."""
+    import contextlib
+    import io
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch import cli, interop
+    from alphazero_reversi_tpu_torch.config import Config, MCTSConfig
+    from alphazero_reversi_tpu_torch.env import endgame
+    from alphazero_reversi_tpu_torch.env.game import Board
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup, search
+    from alphazero_reversi_tpu_torch.mcts.transposition import \
+        TranspositionTable
+    from alphazero_reversi_tpu_torch.models import resnet
+
+    cfg_path = str(ROOT / "configs" / "default_config.json")
+    cfg = Config.load(cfg_path)
+    torch.manual_seed(cfg.seed)
+    net = resnet.build_network(cfg.model)
+    counts = results["round_backup_analyze"]["launches_by_path"]
+
+    def run(argv, stdin=None):
+        out = io.StringIO()
+        old = sys.stdin
+        if stdin is not None:
+            sys.stdin = stdin(out)
+        try:
+            with contextlib.redirect_stdout(out):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = cli.main(argv)
+                secs = _sync_s(t0)
+        finally:
+            sys.stdin, used = old, sys.stdin
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]} exited {rc}: "
+                                 f"{out.getvalue()[-500:]}")
+        return out.getvalue(), secs, used
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pth, ckdir = str(Path(tmp) / "best_model.pth"), str(Path(tmp) / "ck")
+        interop.export_torch_checkpoint(net.state_dict(), pth, cfg.model)
+        out, import_s, _ = run(["import-checkpoint", pth, "-d", ckdir])
+        if "5x128 net, board 8" not in out:
+            raise AssertionError(f"import-checkpoint printed {out!r}")
+        restored = ckpt.restore_best(ckdir)
+        if not all(torch.equal(restored[k], v)
+                   for k, v in net.state_dict().items()):
+            raise AssertionError("imported weights differ from the net's")
+
+        cuda_backup.ROUND_LAUNCHES = 0
+        run(["analyze", "-c", cfg_path, "-d", ckdir, "--sims", "8", "d3"])
+        counts["analyze_warmup"] = warm = cuda_backup.ROUND_LAUNCHES
+        cuda_backup.ROUND_LAUNCHES = 0
+        out, analyze_s, _ = run(["analyze", "-c", cfg_path, "-d", ckdir,
+                                 "d3", "c5"])
+        launches = cuda_backup.ROUND_LAUNCHES
+        counts["analyze"] = launches
+        if launches != 400 or "[400 simulations]" not in out:
+            raise AssertionError(f"analyze: {launches} launches, "
+                                 f"{out[-300:]!r}")
+        top = [line for line in out.splitlines() if "visits" in line]
+        if not top or sum(int(x.split()[2]) for x in top) > 400:
+            raise AssertionError(f"analyze top moves {top}")
+
+        rng = np.random.default_rng(3)
+        board, tokens = Board(), []
+        while sum(board.get_score()) < 52 and not board.game_over:
+            moves = board.get_valid_moves()
+            r, c = moves[int(rng.integers(len(moves)))]
+            board.make_move(r, c)
+            tokens.append(f"{chr(ord('a') + c)}{r + 1}")
+        exact = endgame.EndgameSolver().solve(
+            board.black, board.white, board.current_player)
+        out, solve_s, _ = run(["analyze", "-c", cfg_path, "-d", ckdir,
+                               "--solve", "14", *tokens])
+        if f"{exact.value:+d} discs under optimal play" not in out:
+            raise AssertionError(f"analyze --solve printed {out[-300:]!r}")
+
+        cuda_backup.ROUND_LAUNCHES = 0
+        out, play_s, stdin = run(
+            ["play", "-c", cfg_path, "-d", ckdir, "--sims", "32"],
+            stdin=lambda o: _ScriptedStdin(o, 4))
+        counts["play"] = cuda_backup.ROUND_LAUNCHES
+        if out.count("agent plays ") != 4 or "game aborted" not in out:
+            raise AssertionError(f"play printed {out[-500:]!r}")
+
+    tt = TranspositionTable()
+    mcts = search.MCTS(net, MCTSConfig(num_simulations=64, max_depth=64),
+                       transposition_table=tt)
+    times = []
+    cuda_backup.ROUND_LAUNCHES = 0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, res = mcts.get_action_probs(Board().state, add_noise=False)
+        times.append(_sync_s(t0))
+    counts["tt_query"] = cuda_backup.ROUND_LAUNCHES
+    if (tt.hits, tt.misses) != (1, 1) or res.tree is not None or \
+            cuda_backup.ROUND_LAUNCHES != 64:
+        raise AssertionError(f"TT hits {tt.hits}, misses {tt.misses}, "
+                             f"launches {cuda_backup.ROUND_LAUNCHES}")
+    results["host_play"] = dict(
+        config="configs/default_config.json", net="5x128 bf16 seeded",
+        import_s=import_s, analyze_400_sims_s=analyze_s,
+        analyze_warmup_launches=warm, analyze_launches=launches,
+        solve_empties=64 - sum(board.get_score()), solve_s=solve_s,
+        solve_disc_diff=exact.value, solve_nodes=exact.nodes,
+        play_sims=32, play_agent_moves=4, play_s=play_s,
+        play_human_moves=stdin.lines, play_launches=counts["play"],
+        tt_first_s=times[0], tt_hit_s=times[1], tt_hits=tt.hits)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1037,7 +1511,8 @@ def main() -> int:
     phase("build", build)
     if not failed:
         phase("kernel_check", lambda: (check_backup_kernel(results),
-                                       check_round_kernel(results)))
+                                       check_round_kernel(results),
+                                       check_round_kernel_puct(results)))
     if not failed:
         phase("flagship_selfplay", lambda: flagship_selfplay(results, carry))
         if "traj" in carry:
@@ -1055,10 +1530,16 @@ def main() -> int:
                   lambda: learner_cuda_matches_cpu(results, carry))
         phase("gate_cuda_vs_cpu", lambda: gate_cuda_matches_cpu(results))
         phase("pipeline_cli", lambda: pipeline_cli(results))
+        phase("default_selfplay", lambda: default_selfplay(results))
+        phase("default_iteration_cli",
+              lambda: default_iteration_cli(results))
+        phase("puct_cuda_vs_cpu", lambda: puct_cuda_matches_cpu(results))
+        phase("host_play", lambda: host_play(results))
 
-    kernels = [results[k] for k in ("backup_link", "round_backup")
+    kernels = [results[k] for k in ("backup_link", "round_backup",
+                                    *(x[0] for x in PUCT_SHAPES))
                if k in results]
-    for k in kernels:  # the main path: self-play, gate, CLI iteration
+    for k in kernels:  # the main paths: flagship, default config, host
         k["launches"] = sum(k.get("launches_by_path", {}).values())
     if kernels:
         print(json.dumps({"kernels": kernels}))
@@ -1076,6 +1557,10 @@ def main() -> int:
         print(json.dumps({"pipeline_cli": results["pipeline_cli"]}))
     if "iteration_cli" in results:
         print(json.dumps({"iteration_cli": results["iteration_cli"]}))
+    for name in ("default_selfplay", "default_iteration_cli",
+                 "puct_cuda_vs_cpu", "host_play"):
+        if name in results:
+            print(json.dumps({name: results[name]}))
     if "training" in results:
         tr = results["training"]
         parts = dict(selfplay_s=results["selfplay"]["seconds"],

@@ -1,8 +1,8 @@
 """Parity of the port's arena (``alphazero_reversi_tpu_torch.arena``) with the
-JAX package's: the merged-pairings program with JAX's own move-sampling
-draws injected, the grandchild reuse carry, the action sampler, the
-tournament's ELO replay, and the agreement of the port's three tournament
-paths."""
+JAX package's: the merged-pairings program (Gumbel and PUCT searchers) with
+JAX's own move-sampling draws injected, the grandchild reuse carry, the
+action sampler, the tournament's ELO replay, and the agreement of the
+port's three tournament paths."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,6 +121,47 @@ def test_merged_units_share_searches(merged):
     assert info["searched_games"] == per_search * info["searches"]
 
 
+# PUCT searchers at 6 simulations over 3 levels, c_puct 1.5; with reuse
+# the warm evidence is halved
+PUCT_KW = {**KW, "algorithm": "puct", "num_simulations": 6, "max_depth": 3,
+           "c_puct": 1.5, "tree_reuse_discount": 0.5}
+
+
+@pytest.fixture(scope="module", params=["root", "off"])
+def merged_puct(request, nets, draws):
+    """(reuse mode, JAX per-unit scores, port per-unit scores, the port's
+    play info) for PUCT searchers."""
+    jnet, players = nets
+    jvars, tnet = players[request.param]
+    units = UNITS[request.param]
+    jscores = jarena.play_units(jnet, (jvars, None), units,
+                                KEYS[:len(units)],
+                                random_mask=(False, True),
+                                tree_reuse=request.param, **PUCT_KW)
+    info = {}
+    tscores = tarena.play_units([tnet, None], units,
+                                sample_noise=draws[:len(units)],
+                                tree_reuse=request.param, info=info,
+                                device="cpu", **PUCT_KW)
+    return request.param, jscores, tscores, info
+
+
+def test_merged_puct_units_scores_exact(merged_puct):
+    mode, jscores, tscores, _ = merged_puct
+    assert len(tscores) == len(UNITS[mode])
+    for u, (j, t) in enumerate(zip(jscores, tscores)):
+        np.testing.assert_array_equal(t, np.asarray(j), err_msg=f"unit {u}")
+
+
+def test_merged_puct_units_share_searches(merged_puct):
+    """As with Gumbel searchers: at most one search a half-ply, over both
+    units' games when reuse is on."""
+    mode, _, _, info = merged_puct
+    per_search = 4 if mode == "root" else 2
+    assert 0 < info["searches"] <= info["half_plies"]
+    assert info["searched_games"] == per_search * info["searches"]
+
+
 def test_tree_reuse_carry_is_live(merged):
     """With reuse on, some searches of the parity run start from non-zero
     warm statistics (the grandchild carry); with reuse off, none reads
@@ -216,9 +257,15 @@ def test_play_units_rejects_bad_units():
         tarena.play_units([None], [(0, 1, 2, BLACK)], **kw)
     with pytest.raises(ValueError):
         tarena.play_units([None, None], [(0, 1, 2, 3)], **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tarena.play_units([make_nets(8, 1, 8)[2], None], [(0, 1, 2, BLACK)],
-                          **{**kw, "algorithm": "puct"})
+    net = make_nets(8, 1, 8)[2]
+    with pytest.raises(ValueError, match="algorithm"):
+        tarena.play_units([net, None], [(0, 1, 2, BLACK)],
+                          **{**kw, "algorithm": "alphabeta"})
+    # PUCT is a searcher like Gumbel
+    (scores,) = tarena.play_units([net, None], [(0, 1, 2, BLACK)],
+                                  **{**kw, "algorithm": "puct",
+                                     "num_simulations": 2})
+    assert scores.shape == (2,) and set(scores.tolist()) <= {0.0, 0.5, 1.0}
 
 
 def test_play_pair_halves_are_units():

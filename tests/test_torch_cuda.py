@@ -1,8 +1,9 @@
 """The port on a CUDA card: the backup+link kernel's two entry points
-against their plain versions; the env, a Gumbel search, the replay buffer
-and the learner on the card against the same code on the CPU; and SGD steps
-that never sync with the host. Every test here needs a card and skips
-without one.
+against their plain versions (at the flagship's, the gate's and the PUCT
+default config's shapes); the env, a Gumbel and a PUCT search, the gate,
+the replay buffer and the learner on the card against the same code on the
+CPU; and SGD steps that never sync with the host. Every test here needs a
+card and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -18,7 +19,7 @@ from alphazero_reversi_tpu_torch import replay
 from alphazero_reversi_tpu_torch.config import ModelConfig, TrainingConfig
 from alphazero_reversi_tpu_torch.env import bitboard as env
 from alphazero_reversi_tpu_torch.mcts import cuda_backup
-from alphazero_reversi_tpu_torch.mcts import gumbel
+from alphazero_reversi_tpu_torch.mcts import gumbel, search
 from alphazero_reversi_tpu_torch.models import resnet
 from torch_round_inputs import ROUND_ARGS, round_inputs
 
@@ -355,3 +356,58 @@ def test_checkpoint_restores_onto_card(card, tmp_path):
     assert all(v["exp_avg"].device.type == "cuda" for v in opt.values())
     assert torch.equal(torch.rand(3, generator=src.generator, device=card),
                        torch.rand(3, generator=dst.generator, device=card))
+
+
+@pytest.mark.parametrize("batch,links,dups", [(1024, 1, False),
+                                              (1, 1, False), (64, 4, True)],
+                         ids=["selfplay", "analyze", "dups"])
+def test_round_backup_kernel_at_puct_shapes(card, batch, links, dups):
+    """azr_round_backup at the default config's PUCT-400 shapes: N=401 and
+    60 path levels a lane (max_depth 64, every stage unrolls 60 levels), so
+    P = 60 L > 32 takes the kernel's stepwise path. Self-play (B=1024, L=1)
+    and analyze (B=1) equal the plain version on the CPU and on the card
+    bit for bit; B=64 at L=4 with lane 1 repeating lane 0 in every game
+    (in-round duplicates, linked once) equals the CPU plain version."""
+    d = round_inputs(np.random.default_rng(batch + links), batch, 401, 60,
+                     links, dups=dups)
+    before = cuda_backup.ROUND_LAUNCHES
+    got = _round(d, card, cuda_backup.round_backup)
+    torch.cuda.synchronize()
+    assert cuda_backup.ROUND_LAUNCHES == before + 1
+    for x, y in zip(got, _round(d, "cpu", cuda_backup.round_backup_reference)):
+        assert torch.equal(x.cpu(), y)
+    if links == 1:
+        for x, y in zip(got, _round(d, card,
+                                    cuda_backup.round_backup_reference)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("leaf_batch", [1, 4])
+def test_puct_search_on_card_matches_cpu(card, leaf_batch):
+    """A float32 PUCT search with injected root noise and a warm root at
+    discount 0.25 (one azr_round_backup launch per round) equals the CPU
+    search through the plain version: visit counts exact."""
+    torch.manual_seed(0)
+    net = resnet.build_network(ModelConfig(num_res_blocks=1, num_filters=16,
+                                           compute_dtype="float32"))
+    roots = env.initial_state((8,))
+    rng = np.random.default_rng(2)
+    legal = env.legal_action_mask(roots)
+    wv = torch.where(legal, torch.from_numpy(rng.integers(0, 6, (8, 65))),
+                     0).float()
+    kw = dict(num_simulations=16, c_puct=1.25, dirichlet_alpha=0.03,
+              dirichlet_epsilon=0.25, max_depth=8, num_stages=3,
+              leaf_batch=leaf_batch, warm_discount=0.25)
+    log_gamma = torch.from_numpy(rng.normal(0, 5, (8, 65)).astype(
+        np.float32))
+    ref = search.run_search(net, roots, warm_root=(wv, wv * 0.3),
+                            log_gamma=log_gamma, device="cpu", **kw)
+    before = cuda_backup.ROUND_LAUNCHES
+    got = search.run_search(
+        net.to(card), env.EnvState(*(t.to(card) for t in roots)),
+        warm_root=(wv.to(card), wv.to(card) * 0.3),
+        log_gamma=log_gamma.to(card), device=card, **kw)
+    assert cuda_backup.ROUND_LAUNCHES == before + 16 // leaf_batch
+    assert torch.equal(got.visit_counts.cpu(), ref.visit_counts)
+    torch.testing.assert_close(got.root_value.cpu(), ref.root_value,
+                               rtol=0, atol=1e-5)

@@ -13,7 +13,7 @@ from alphazero_reversi_tpu_torch import (arena, cli, learner, pipeline,
                                          replay, selfplay)
 from alphazero_reversi_tpu_torch.config import Config, ModelConfig
 from alphazero_reversi_tpu_torch.env import bitboard as tenv
-from alphazero_reversi_tpu_torch.mcts import gumbel
+from alphazero_reversi_tpu_torch.mcts import gumbel, search
 from alphazero_reversi_tpu_torch.models import resnet
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -36,6 +36,13 @@ def test_port_never_imports_jax(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_ast_check_covers_every_port_module():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("ops/random.py", "zobrist.py", "mcts/transposition.py",
+                   "mcts/search.py", "env/game.py", "interop.py", "cli.py"):
+        assert f"alphazero_reversi_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", sorted((ROOT / "configs").glob("*.json")),
@@ -62,9 +69,16 @@ def test_entry_points_default_to_cuda(tmp_path):
     states = tenv.initial_state((2,))
     with pytest.raises(RuntimeError, match="CUDA"):
         gumbel.run_gumbel_search(net, states, num_simulations=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        search.run_search(net, states, num_simulations=2, c_puct=1.0,
+                          dirichlet_alpha=0.3, dirichlet_epsilon=0.25)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        search.MCTS(net, Config().mcts)
     kw = selfplay.search_kwargs(Config().mcts, Config().self_play)
     with pytest.raises(RuntimeError, match="CUDA"):
         selfplay.play_games(net, num_games=2, **{**kw, "algorithm": "gumbel"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        selfplay.play_games(net, num_games=2, **kw)  # PUCT
     with pytest.raises(RuntimeError, match="CUDA"):
         selfplay.SelfPlay(net, Config().mcts, Config().self_play)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -84,7 +98,9 @@ def test_entry_points_default_to_cuda(tmp_path):
     for argv in (["train", "-c", str(tmp_path / "c.json")],
                  ["continue", "-c", str(tmp_path / "c.json")],
                  ["tournament", "-c", str(tmp_path / "c.json"),
-                  "--model-dir", str(tmp_path)]):
+                  "--model-dir", str(tmp_path)],
+                 ["analyze", "-c", str(tmp_path / "c.json"), "d3"],
+                 ["play", "-c", str(tmp_path / "c.json")]):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(argv)
 

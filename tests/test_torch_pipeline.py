@@ -180,3 +180,35 @@ def test_create_config_writes_default(tmp_path):
     assert cli.main(["create-config", "-o", str(out)]) == 0
     data = json.loads(out.read_text())
     assert data["training"]["lr_milestones"] == [5, 7]
+
+
+@pytest.mark.parametrize("name", ["default_config", "demo_tpu"])
+def test_shipped_puct_configs_train_one_iteration(tmp_path, name):
+    """The PUCT configs as shipped (``mcts.batch_size`` 0 migrates to 1)
+    go through ``cli train`` for one iteration on the CPU, cut to a 1x8
+    net, 2 games of 20 moves, PUCT-4 and a PUCT-2 gate of 2 games a pair,
+    with outputs under ``tmp_path``: PUCT self-play, SGD, the PUCT gate and
+    the checkpoint."""
+    from alphazero_reversi_tpu_torch.config import Config
+
+    cfg = Config.load(str(ROOT / "configs" / f"{name}.json"))
+    assert (cfg.mcts.algorithm, cfg.mcts.batch_size,
+            cfg.tournament.algorithm) == ("puct", 1, "puct")
+    cfg.model.num_res_blocks, cfg.model.num_filters = 1, 8
+    cfg.model.compute_dtype = "float32"
+    cfg.mcts.num_simulations, cfg.tournament.num_simulations = 4, 2
+    cfg.self_play.num_games = cfg.self_play.num_parallel_games = 2
+    cfg.self_play.max_moves = 20
+    cfg.tournament.rounds, cfg.tournament.games_per_pair = 1, 2
+    cfg.logging.use_tensorboard = False
+    cfg.training.checkpoint_dir = str(tmp_path / "checkpoints")
+    cfg.logging.log_dir = str(tmp_path / "logs")
+    cfg.self_play.save_dir = str(tmp_path / "self_play_data")
+    cfg.tournament.output_dir = str(tmp_path / "tournament")
+    path = str(tmp_path / "config.json")
+    cfg.save(path)
+    assert cli.main(["--device", "cpu", "train", "-c", path,
+                     "--iterations", "1", "--run-name", "run"]) == 0
+    (row,) = _metrics(tmp_path, "run")
+    assert row["selfplay/positions"] == 40
+    assert ckpt.latest_checkpoint(cfg.training.checkpoint_dir)

@@ -1,6 +1,6 @@
 """Parity of the port's self-play (``alphazero_reversi_tpu_torch.selfplay``)
-with the JAX package's Gumbel ``play_games`` under tree reuse, with JAX's own
-per-move Gumbel draws injected into the port."""
+with the JAX package's ``play_games`` under tree reuse, Gumbel and PUCT,
+with JAX's own per-move draws injected into the port."""
 import dataclasses
 import pathlib
 
@@ -12,6 +12,7 @@ import torch
 
 from alphazero_reversi_tpu import selfplay as jselfplay
 from alphazero_reversi_tpu.config import Config as JConfig
+from alphazero_reversi_tpu.ops import random as jrandom
 from alphazero_reversi_tpu_torch import selfplay as tselfplay
 from alphazero_reversi_tpu_torch.config import Config
 from alphazero_reversi_tpu_torch.env import bitboard as tenv
@@ -109,10 +110,76 @@ def test_search_kwargs_match_jax(name):
         jselfplay.search_kwargs(j.mcts, j.self_play)
 
 
-def test_puct_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tselfplay.play_games(None, num_games=1, device="cpu",
-                             **{**KW, "algorithm": "puct"})
+# PUCT with the temperature schedule switching after 2 moves, tiny-alpha
+# root noise and discounted tree reuse
+PUCT_KW = {**KW, "algorithm": "puct", "dirichlet_alpha": 0.03,
+           "tree_reuse_discount": 0.25}
+
+
+def _jax_puct_draws(key, batch, moves, alpha):
+    """The draws JAX's PUCT play_games makes: selfplay.py play_games (step
+    keys, then search and sample keys) -> search.py run_search's Dirichlet
+    noise (ops/random.py sample_log_gamma on the search key) and
+    search.sample_actions' jax.random.categorical (a Gumbel draw on the
+    sample key)."""
+    def draws(key):
+        def one(k):
+            search_key, sample_key = jax.random.split(k)
+            return (jrandom.sample_log_gamma(search_key, alpha, (batch, 65)),
+                    jax.random.gumbel(sample_key, (batch, 65), jnp.float32))
+
+        return jax.vmap(one)(jax.random.split(key, moves))
+
+    return tuple(np.array(x) for x in jax.jit(draws)(key))
+
+
+@pytest.fixture(scope="module")
+def puct_games():
+    jnet, variables, tnet, _ = make_nets(9, 1, 8)
+    key = jax.random.PRNGKey(4)
+    init = random_positions(B, 3, plies=[0, 5, 30, 58])
+    jtraj = jselfplay.play_games(jnet, variables, key, num_games=B,
+                                 init_states=to_jax_state(init), **PUCT_KW)
+    log_gamma, sample = _jax_puct_draws(key, B, T, 0.03)
+    ttraj = tselfplay.play_games(
+        tnet, num_games=B, init_states=init, device="cpu",
+        log_gamma=torch.from_numpy(log_gamma),
+        sample_noise=torch.from_numpy(sample), **PUCT_KW)
+    return jtraj, ttraj
+
+
+@pytest.mark.parametrize("field", ["actions", "valid", "to_move", "value",
+                                   "planes", "policy"])
+def test_puct_trajectory_exact(puct_games, field):
+    """Every recorded array equal to JAX's (policy targets are visit counts
+    over the simulation count: exact too)."""
+    jtraj, ttraj = puct_games
+    np.testing.assert_array_equal(getattr(ttraj, field).numpy(),
+                                  np.asarray(getattr(jtraj, field)))
+
+
+def test_puct_final_state_exact(puct_games):
+    jtraj, ttraj = puct_games
+    assert_states_equal(jtraj.final_state, ttraj.final_state)
+    assert ttraj.final_state.done.any() and not ttraj.final_state.done.all()
+    # the visit targets sum to 1 on every live slot
+    policy = ttraj.policy[ttraj.valid]
+    torch.testing.assert_close(policy.sum(-1), torch.ones(len(policy)))
+
+
+def test_puct_selfplay_draws_from_generator():
+    """Without injected draws both come from the generator: the same seed
+    plays the same games, another seed other games."""
+    _, _, tnet, _ = make_nets(9, 1, 8)
+    kw = {**PUCT_KW, "max_moves": 4, "temp_threshold": 4}
+
+    def play(seed):
+        return tselfplay.play_games(
+            tnet, num_games=8, device="cpu",
+            generator=torch.Generator().manual_seed(seed), **kw).actions
+
+    a, b, c = play(0), play(0), play(1)
+    assert torch.equal(a, b) and not torch.equal(a, c)
 
 
 def test_selfplay_wrapper_runs_on_cpu():

@@ -11,14 +11,17 @@ ROUND_ARGS = ("pn", "pa", "pt", "eval_tomove", "value", "leaves",
 
 
 def round_inputs(rng, batch: int, nodes_n: int, levels: int, links: int,
-                 odd: bool = False) -> dict:
+                 odd: bool = False, dups: bool = False) -> dict:
     """Each lane descends from the root (node 0) through distinct nodes, 1 to
     ``levels`` deep, padded with node -1; its leaf edge is its last entry
     (``leaf_act`` -1, no expansion, for about 1 lane in 10). With
     ``links > 1``, about 3 lanes in 10 repeat lane 0 (an in-round duplicate:
     same path, same evaluation) and about 3 in 10 share lane 0's root edge
     with another value. Packed cells hold exact integers, value sums
-    floats. ``odd`` adds nodes past the tree and actions outside [0, 65)."""
+    floats. ``odd`` adds nodes past the tree and actions outside [0, 65).
+    ``dups`` (links > 1) makes lane 1 of every game repeat lane 0, whose
+    leaf edge is then always expanded: a forced in-round duplicate, linked
+    once."""
     visits = rng.integers(0, 33, (batch, nodes_n, 65))
     stats = np.concatenate(
         [visits * 1024.0 + rng.integers(0, nodes_n, visits.shape),
@@ -35,7 +38,7 @@ def round_inputs(rng, batch: int, nodes_n: int, levels: int, links: int,
         for l in range(links):
             lane = slice(l * levels, (l + 1) * levels)
             kind = rng.random()
-            if l and kind < 0.3:
+            if l and (kind < 0.3 or (dups and l == 1)):
                 pn[b, lane], pa[b, lane], pt[b, lane] = (
                     pn[b, :levels], pa[b, :levels], pt[b, :levels])
                 leaves[b, l], leaf_acts[b, l] = leaves[b, 0], leaf_acts[b, 0]
@@ -50,7 +53,8 @@ def round_inputs(rng, batch: int, nodes_n: int, levels: int, links: int,
             pn[b, l * levels:l * levels + depth] = path
             pa[b, l * levels:l * levels + depth] = acts
             leaves[b, l] = path[-1]
-            leaf_acts[b, l] = acts[-1] if rng.random() < 0.9 else -1
+            leaf_acts[b, l] = acts[-1] if rng.random() < 0.9 or (
+                dups and l == 0) else -1
     if odd:
         pn = np.where((pn >= 0) & (rng.random(pn.shape) < 0.1),
                       nodes_n + rng.integers(0, 3, pn.shape), pn)
