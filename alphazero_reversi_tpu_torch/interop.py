@@ -20,6 +20,7 @@ on it.
 """
 from __future__ import annotations
 
+import pickle
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -36,8 +37,14 @@ _BN_BUFFERS = ("weight", "bias", "running_mean", "running_var")
 def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A reference ``.pth`` as ``{key: tensor}``: a raw ``state_dict`` or
     the ``{'model_state_dict': ...}`` wrapper; ``_script_module.`` keys are
-    kept only where the plain key is absent."""
-    obj = torch.load(path, map_location="cpu", weights_only=False)
+    kept only where the plain key is absent. Loads with
+    ``weights_only=True``: a file that needs arbitrary unpickling raises."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise ValueError(
+            f"{path}: not a tensors-only checkpoint (a raw state_dict or "
+            f"a {{'model_state_dict': ...}} wrapper): {e}") from None
     if isinstance(obj, dict) and "model_state_dict" in obj:
         obj = obj["model_state_dict"]
     out: Dict[str, torch.Tensor] = {}

@@ -3,7 +3,7 @@ gate search and the default config's PUCT rounds spend their time on the
 card.
 
     python -m alphazero_reversi_tpu_torch.trace_selfplay [--moves 2]
-        [--sgd-steps 16] [--gate-searches 4] [--puct-rounds 60]
+        [--sgd-steps 16] [--gate-searches 4]
 
 Plays one warm-up move of the flagship self-play batch
 (``configs/flagship_run.json``, 1024 games, random weights), times
@@ -29,11 +29,11 @@ numbers per search.
 
 Then the default config's PUCT search (``puct``: ``configs/default_config
 .json``, Dirichlet noise, the same random weights) at its two widths, 1024
-games (self-play) and 1 (``cli analyze``): a search of ``--puct-rounds``
-rounds in one stage at ``max_depth`` 64, so every round unrolls
-``min(60, rounds)`` levels as the default's 400-simulation search does;
-one warm-up search, one timed, one traced with CUDA activity only; the
-same numbers per round.
+games (self-play) and 1 (``cli analyze``): a search of 60 rounds in one
+stage at ``max_depth`` 64, so every round unrolls the 60 levels that the
+default's 400-simulation search unrolls (its levels cap); one warm-up
+search, one timed, one traced with CUDA activity only; the same numbers
+per round.
 """
 from __future__ import annotations
 
@@ -167,8 +167,12 @@ def trace_gate(cfg: Config, net, searches: int, games: int = 10) -> dict:
             "top_kernels_ms": s["top_kernels_ms"]}
 
 
-def trace_puct(rounds: int) -> dict:
+PUCT_ROUNDS = 60  # the default search's levels cap: min(64, 400, 60)
+
+
+def trace_puct() -> dict:
     """PUCT rounds of the default config at 1024 games and at 1."""
+    rounds = PUCT_ROUNDS
     cfg = Config.load(str(ROOT / "configs" / "default_config.json"))
     torch.manual_seed(cfg.seed)
     net = resnet.build_network(cfg.model).cuda()
@@ -179,7 +183,7 @@ def trace_puct(rounds: int) -> dict:
               dirichlet_epsilon=m.dirichlet_epsilon, max_depth=m.max_depth,
               num_stages=1, generator=gen)
     out = {"config": "configs/default_config.json", "rounds": rounds,
-           "levels": min(m.max_depth, rounds, 60)}
+           "levels": rounds}
     for name, games in (("selfplay", cfg.self_play.num_parallel_games),
                         ("analyze", 1)):
         roots = env.initial_state((games,), device="cuda")
@@ -214,7 +218,6 @@ def main() -> None:
     parser.add_argument("--moves", type=int, default=2)
     parser.add_argument("--sgd-steps", type=int, default=16)
     parser.add_argument("--gate-searches", type=int, default=4)
-    parser.add_argument("--puct-rounds", type=int, default=60)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trace_selfplay needs a CUDA device")
@@ -257,7 +260,7 @@ def main() -> None:
         "top_kernels_ms": s["top_kernels_ms"],
         "sgd": trace_sgd(cfg, net, traj, args.sgd_steps),
         "gate": trace_gate(cfg, net, args.gate_searches),
-        "puct": trace_puct(args.puct_rounds),
+        "puct": trace_puct(),
     }))
 
 

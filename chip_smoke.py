@@ -39,8 +39,7 @@ Phases (each raises on failure; the script exits 1 if any failed):
    best, replay and generators equal;
 7. ``flagship_iteration_cli``: one whole flagship iteration through
    ``cli.main(["train", "-c", "configs/flagship_run.json", "--iterations",
-   "1", ...])`` with the simulations cut (self-play 32 -> 16, gate
-   32 -> 8), everything built by the pipeline: the metrics row, the
+   "1", ...])``, everything built by the pipeline: the metrics row, the
    checkpoint of iteration 1, and one ``azr_round_backup`` launch per
    search round;
 8. ``cuda_vs_cpu``: a small float32 self-play batch on the card and on the
@@ -75,8 +74,10 @@ Prints the ``kernels``, ``selfplay``, ``cuda_vs_cpu``, ``gate``,
 ``checkpoint``, ``pipeline_cli``, ``iteration_cli``, ``default_selfplay``,
 ``default_iteration_cli``, ``puct_cuda_vs_cpu``, ``host_play`` and
 ``training`` JSON lines (``training.iteration_s`` sums the separately
-timed phases 3-6; ``iteration_cli_s`` is the pipeline's own, cut iteration
-from phase 7), the card's name and power limit, and last ``{"ok": true,
+timed phases 3-6; ``iteration_cli_s`` is the pipeline's own iteration
+from phase 7; each kernel row's ``launches`` counts the main paths' launches
+at its shape, and ``launches_other_shapes`` the rest, each with its shape),
+the card's name and power limit, and last ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
@@ -916,8 +917,7 @@ def flagship_iteration_cli(results: dict) -> None:
     ``cli.main(["train", "-c", "configs/flagship_run.json", "--iterations",
     "1", "--run-dir", <tmp>])``: self-play of 1024 games, relabel, save,
     replay insert, SGD, the merged gate of current, best and random, and
-    the checkpoint, all built by the pipeline itself, with the simulations
-    cut for time (self-play 32 -> 16, gate 32 -> 8). Checks the one
+    the checkpoint, all built by the pipeline itself. Checks the one
     metrics row (the JAX pipeline's names plus ``checkpoint/seconds``,
     finite, the buffer holding the new positions), the checkpoint of
     iteration 1, and that every search round launched ``azr_round_backup``
@@ -932,18 +932,12 @@ def flagship_iteration_cli(results: dict) -> None:
     from alphazero_reversi_tpu_torch.config import Config
     from alphazero_reversi_tpu_torch.mcts import cuda_backup
 
-    cfg = Config.load(str(ROOT / "configs" / "flagship_run.json"))
-    # cut for time (phases 3-6 run the flagship at full depth): a search
-    # costs host time per round at any batch, so the simulations are cut,
-    # self-play 32 -> 16 and the gate 32 -> 8 (the gate's game count would
-    # not matter: its units share each half-ply's searches)
-    cfg.mcts.num_simulations, cfg.tournament.num_simulations = 16, 8
+    cfg_path = ROOT / "configs" / "flagship_run.json"
+    cfg = Config.load(str(cfg_path))
     # leaf_batch 1: one round a simulation, in self-play and in the gate
     rounds = math.gcd(cfg.mcts.num_simulations,
                       cfg.tournament.num_simulations)
     with tempfile.TemporaryDirectory() as tmp:
-        cfg_path = Path(tmp) / "flagship_run_cut.json"
-        cfg.save(str(cfg_path))
         torch.cuda.synchronize()
         cuda_backup.LAUNCHES = cuda_backup.ROUND_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -987,9 +981,7 @@ def flagship_iteration_cli(results: dict) -> None:
     parts = {k: m[f"{k}/seconds"]
              for k in ("selfplay", "train", "eval", "checkpoint")}
     results["iteration_cli"] = dict(
-        config="configs/flagship_run.json",
-        cut="mcts.num_simulations 32 -> 16, tournament.num_simulations "
-        "32 -> 8", iterations=1, wall_s=wall_s,
+        config="configs/flagship_run.json", iterations=1, wall_s=wall_s,
         **{f"{k}_s": v for k, v in parts.items()},
         metrics_sum_s=sum(parts.values()),
         positions=m["selfplay/positions"], loss=m["train/loss"],
@@ -1085,7 +1077,7 @@ def check_round_kernel_puct(results: dict) -> None:
             + (" lane 1 = lane 0" if dups else ""),
             exact_cpu=True, exact_card=links == 1, max_abs_err=max_err,
             **_time_round(_round_tensors(d, dev), d["slot0"]),
-            launches_by_path={})
+            launches_by_path={}, launches_other_shapes={})
 
 
 def default_selfplay(results: dict) -> None:
@@ -1244,8 +1236,10 @@ def default_iteration_cli(results: dict) -> None:
     # every search: 8 (self-play) or 4 (gate) rounds, one launch each
     if launches <= 0 or launches % 4:
         raise AssertionError(f"round kernel launched {launches} times")
-    results["round_backup_puct"]["launches_by_path"][
-        "default_iteration_cli (B=32 self-play, gate)"] = launches
+    # not this row's shape: filed with the shapes they ran at
+    results["round_backup_puct"]["launches_other_shapes"][
+        "default_iteration_cli (self-play B=32 N=9 levels<=8; gate N=5 "
+        "levels<=4)"] = launches
     results["default_iteration_cli"] = dict(
         config="configs/default_config.json", cuts=cuts, iterations=2,
         train_s=seconds["train"], continue_s=seconds["continue"],
@@ -1383,6 +1377,8 @@ def host_play(results: dict) -> None:
     torch.manual_seed(cfg.seed)
     net = resnet.build_network(cfg.model)
     counts = results["round_backup_analyze"]["launches_by_path"]
+    # the other searches of this phase, filed with the shapes they ran at
+    others = results["round_backup_analyze"]["launches_other_shapes"]
 
     def run(argv, stdin=None):
         out = io.StringIO()
@@ -1415,7 +1411,8 @@ def host_play(results: dict) -> None:
 
         cuda_backup.ROUND_LAUNCHES = 0
         run(["analyze", "-c", cfg_path, "-d", ckdir, "--sims", "8", "d3"])
-        counts["analyze_warmup"] = warm = cuda_backup.ROUND_LAUNCHES
+        others["analyze_warmup (B=1 N=9 levels<=8)"] = warm = \
+            cuda_backup.ROUND_LAUNCHES
         cuda_backup.ROUND_LAUNCHES = 0
         out, analyze_s, _ = run(["analyze", "-c", cfg_path, "-d", ckdir,
                                  "d3", "c5"])
@@ -1446,7 +1443,8 @@ def host_play(results: dict) -> None:
         out, play_s, stdin = run(
             ["play", "-c", cfg_path, "-d", ckdir, "--sims", "32"],
             stdin=lambda o: _ScriptedStdin(o, 4))
-        counts["play"] = cuda_backup.ROUND_LAUNCHES
+        play_launches = cuda_backup.ROUND_LAUNCHES
+        others["play (B=1 N=33 levels<=32)"] = play_launches
         if out.count("agent plays ") != 4 or "game aborted" not in out:
             raise AssertionError(f"play printed {out[-500:]!r}")
 
@@ -1460,7 +1458,7 @@ def host_play(results: dict) -> None:
         t0 = time.perf_counter()
         _, res = mcts.get_action_probs(Board().state, add_noise=False)
         times.append(_sync_s(t0))
-    counts["tt_query"] = cuda_backup.ROUND_LAUNCHES
+    others["tt_query (B=1 N=65 levels<=60)"] = cuda_backup.ROUND_LAUNCHES
     if (tt.hits, tt.misses) != (1, 1) or res.tree is not None or \
             cuda_backup.ROUND_LAUNCHES != 64:
         raise AssertionError(f"TT hits {tt.hits}, misses {tt.misses}, "
@@ -1472,7 +1470,7 @@ def host_play(results: dict) -> None:
         solve_empties=64 - sum(board.get_score()), solve_s=solve_s,
         solve_disc_diff=exact.value, solve_nodes=exact.nodes,
         play_sims=32, play_agent_moves=4, play_s=play_s,
-        play_human_moves=stdin.lines, play_launches=counts["play"],
+        play_human_moves=stdin.lines, play_launches=play_launches,
         tt_first_s=times[0], tt_hit_s=times[1], tt_hits=tt.hits)
 
 
@@ -1539,7 +1537,8 @@ def main() -> int:
     kernels = [results[k] for k in ("backup_link", "round_backup",
                                     *(x[0] for x in PUCT_SHAPES))
                if k in results]
-    for k in kernels:  # the main paths: flagship, default config, host
+    for k in kernels:  # the main paths at the row's shape; launches at
+        # other shapes stand apart in ``launches_other_shapes``
         k["launches"] = sum(k.get("launches_by_path", {}).values())
     if kernels:
         print(json.dumps({"kernels": kernels}))

@@ -322,6 +322,20 @@ def test_export_import_round_trip_and_wrappers(exported, tmp_path):
             path, dataclasses.replace(cfg, num_filters=32))
 
 
+class _Payload:
+    """An object that only arbitrary unpickling can rebuild."""
+
+
+def test_import_refuses_arbitrary_pickles(exported, tmp_path):
+    """The reference forms load tensors-only; a ``.pth`` that holds any
+    other object raises a ValueError naming the file, unloaded."""
+    raw = torch.load(exported[0])
+    bad = str(tmp_path / "bad.pth")
+    torch.save({"model_state_dict": raw, "extra": _Payload()}, bad)
+    with pytest.raises(ValueError, match="bad.pth"):
+        interop.import_torch_checkpoint(bad)
+
+
 # ----------------------------------------------------------------- CLI
 def _cli_config(tmp_path, algorithm="puct") -> str:
     cfg = Config()
