@@ -19,6 +19,13 @@ SGD step changes the weights in place. With ``async_save`` a background
 thread then writes the file while the caller goes on. At most one write is
 in flight: a new save waits for the previous one, and readers call
 ``wait_for_saves`` first.
+
+A caller that takes the host copy off its own thread (the pipeline's
+``background_checkpoint_fetch``) first takes a ``snapshot``: a clone of
+every tensor where it lies, made on the caller's stream, and a CUDA event
+recorded after it. ``to_host`` of that snapshot on another thread waits
+for the event on a stream of its own, so it never sees a later in-place
+write and never holds up the caller's stream.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import re
 import shutil
 import tempfile
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,17 +48,49 @@ _WRITER: Optional[threading.Thread] = None
 _ERROR: Optional[BaseException] = None
 
 
-def _to_host(tree: Any) -> Any:
+def _map_tensors(fn, tree: Any) -> Any:
+    """``tree`` with ``fn`` applied to every tensor in its dicts, lists and
+    tuples; other leaves are kept as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def to_host(tree: Any, ready: Optional["torch.cuda.Event"] = None,
+            device: Optional[torch.device] = None) -> Any:
     """A copy of ``tree`` with every tensor copied to host memory (a CUDA
     tensor's copy waits for the card; a CPU tensor is cloned, so later
-    in-place updates do not reach the copy)."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_host(v) for v in tree)
-    return tree
+    in-place updates do not reach the copy). With ``ready``, the event a
+    ``snapshot`` recorded on CUDA ``device``, the copies run on a new stream
+    of that device that first waits for the event."""
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to("cpu", copy=True)
+
+    if ready is None:
+        return _map_tensors(copy, tree)
+    stream = torch.cuda.Stream(device=device)
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        return _map_tensors(copy, tree)
+
+
+def snapshot(tree: Any, device: torch.device
+             ) -> Tuple[Any, Optional["torch.cuda.Event"]]:
+    """A clone of every tensor of ``tree`` where it lies, and (on a CUDA
+    ``device``) an event recorded on its current stream after the clones.
+    Later in-place writes to ``tree`` do not reach the clone, so another
+    thread may copy it to the host (``to_host(clone, event, device)``)
+    while the caller goes on."""
+    clone = _map_tensors(lambda t: t.detach().clone(), tree)
+    if device.type != "cuda":
+        return clone, None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return clone, event
 
 
 def wait_for_saves() -> None:
@@ -99,9 +138,10 @@ def _write_atomic(path: str, filename: str, tree: Any) -> None:
         shutil.rmtree(old, ignore_errors=True)
 
 
-def _save(path: str, filename: str, tree: Any, async_save: bool) -> str:
+def _save(path: str, filename: str, tree: Any, async_save: bool,
+          host_copy: bool = False) -> str:
     global _WRITER
-    host_tree = _to_host(tree)
+    host_tree = tree if host_copy else to_host(tree)
     wait_for_saves()  # at most one write in flight
     if not async_save:
         _write_atomic(path, filename, host_tree)
@@ -144,12 +184,14 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 
 def save_checkpoint(ckpt_dir: str, iteration: int, tree: Dict[str, Any],
-                    async_save: bool = False) -> str:
+                    async_save: bool = False, host_copy: bool = False) -> str:
     """Write ``tree`` as ``<ckpt_dir>/it_<iteration>`` (module docstring:
     host copy first, then an atomic write, in the background with
-    ``async_save``). Returns the path."""
+    ``async_save``). ``host_copy`` says ``tree`` already is a host copy
+    that nothing else writes (``to_host``'s), and is written as it is.
+    Returns the path."""
     return _save(checkpoint_path(ckpt_dir, iteration), STATE_FILE, tree,
-                 async_save)
+                 async_save, host_copy)
 
 
 def prune_checkpoints(ckpt_dir: str, keep_latest: int = 1) -> List[str]:

@@ -21,7 +21,7 @@ on it.
 from __future__ import annotations
 
 import pickle
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +34,30 @@ _ARCH_FIELDS = ("num_res_blocks", "num_filters", "value_head_hidden_size",
 _BN_BUFFERS = ("weight", "bias", "running_mean", "running_var")
 
 
+def _numpy_scalar_globals() -> List[Any]:
+    """What unpickling a numpy scalar needs: numpy's scalar constructor
+    (under both its numpy 1 and numpy 2 module names) and the numeric dtype
+    classes. A reference full-state checkpoint holds such scalars in
+    ``best_elo`` and ``metrics``."""
+    scalar = np.float64(0).__reduce__()[0]
+    named = [(scalar, f"numpy.{core}.multiarray.scalar")
+             for core in ("core", "_core")]
+    kinds = (np.bool_, np.int8, np.int16, np.int32, np.int64, np.uint8,
+             np.uint16, np.uint32, np.uint64, np.float16, np.float32,
+             np.float64)
+    return [scalar, *named, np.dtype, *(type(np.dtype(k)) for k in kinds)]
+
+
 def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A reference ``.pth`` as ``{key: tensor}``: a raw ``state_dict`` or
-    the ``{'model_state_dict': ...}`` wrapper; ``_script_module.`` keys are
-    kept only where the plain key is absent. Loads with
-    ``weights_only=True``: a file that needs arbitrary unpickling raises."""
+    the ``{'model_state_dict': ...}`` wrapper (the reference's full-state
+    checkpoint, whose other entries are dropped); ``_script_module.`` keys
+    are kept only where the plain key is absent. Loads with
+    ``weights_only=True``, allowing numpy scalars besides tensors and plain
+    containers: a file that needs any other unpickling raises."""
     try:
-        obj = torch.load(path, map_location="cpu", weights_only=True)
+        with torch.serialization.safe_globals(_numpy_scalar_globals()):
+            obj = torch.load(path, map_location="cpu", weights_only=True)
     except pickle.UnpicklingError as e:
         raise ValueError(
             f"{path}: not a tensors-only checkpoint (a raw state_dict or "

@@ -6,9 +6,10 @@ run, and the same ``Logger`` surface less ``file_output`` (the switch for
 non-primary processes, which comes with multi-process training). Every ``log_metrics`` call also
 appends one JSON object ``{"step": ..., <name>: <value>, ...}`` to
 ``<run>/metrics.jsonl``, so a run's metrics are readable without
-TensorBoard. With ``use_tensorboard`` the scalars also go to a
-``SummaryWriter`` when the ``tensorboard`` package is installed; where it is
-not, the logger warns once and goes on with the JSON metrics.
+TensorBoard. With ``use_tensorboard`` the scalars, histograms
+(``log_histogram``) and projector embeddings (``log_embedding``) also go to
+a ``SummaryWriter`` when the ``tensorboard`` package is installed; where it
+is not, the logger warns once and goes on with the JSON metrics.
 """
 from __future__ import annotations
 
@@ -80,6 +81,20 @@ class Logger:
                 self.writer.add_scalar(k, v, step)
         self.info("step %d: %s", step,
                   ", ".join(f"{k}={v:.5g}" for k, v in items.items()))
+
+    def log_histogram(self, tag: str, values, step: int) -> None:
+        """A histogram of ``values`` (a tensor or array) to TensorBoard."""
+        if self.writer is not None:
+            self.writer.add_histogram(tag, values, step)
+
+    def log_embedding(self, tag: str, embedding, metadata=None,
+                      label_img=None, step: int = 0) -> None:
+        """An ``[N, D]`` embedding (tensor or array) to TensorBoard's
+        projector, with one ``metadata`` label per row."""
+        if self.writer is not None:
+            self.writer.add_embedding(embedding, metadata=metadata,
+                                      label_img=label_img, tag=tag,
+                                      global_step=step)
 
     def log_model_graph(self, graph_text: str) -> None:
         """The model's structure (the module's ``repr``) to

@@ -105,7 +105,14 @@ def round_backup_reference(stats: torch.Tensor, pn: torch.Tensor,
         c(slots.expand(batch, L), torch.int32), c(do_link, torch.bool))
     rsign = torch.where(eval_tomove == root_to_move[:, None], 1.0, -1.0)
     root_visit.add_(L)
-    root_vsum.add_((rsign * value).sum(-1))
+    # the lanes' values summed in lane order, as the kernel sums them
+    # (``sum(-1)`` leaves the order to the backend: on the CPU it is
+    # vectorized from 16 lanes up, and float sums differ in the last bit)
+    signed = rsign * value
+    total = signed[:, 0]
+    for lane in range(1, L):
+        total = total + signed[:, lane]
+    root_vsum.add_(total)
 
 
 def _signature(tensors) -> tuple:

@@ -17,9 +17,13 @@ Per iteration:
    (``arena.Arena.run_tournament``; the flagship merges the pairings); the
    current net becomes best when its rating beats best's by
    ``promotion_elo_margin``, and the best weights are saved.
-4. **Checkpoint** every ``save_interval`` iterations (``checkpoint.py``:
-   the host copy on the loop's clock, the write in the background), and on
-   interrupt.
+4. **Checkpoint** every ``save_interval`` iterations and on interrupt
+   (``save_checkpoint``): the host copy on the loop's clock and the write
+   in the background, or with ``background_checkpoint_fetch`` both in a
+   worker thread; the replay buffer fresh on every
+   ``replay_checkpoint_interval``-th save. With TensorBoard, each in-loop
+   save is followed by a projector embedding of up to 256 buffered
+   positions (``_log_replay_embedding``).
 
 Randomness comes from two generators, both in the checkpoint: one on the
 device for SGD (sampling, symmetries, dropout), and one on the host that
@@ -34,9 +38,11 @@ from __future__ import annotations
 
 import copy
 import math
+import threading
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from . import arena as arena_lib
@@ -85,6 +91,12 @@ class AlphaZeroPipeline:
         self.metrics_history: list = []
         self._last_live_fraction = 0.0
         self._last_relabel_stats: Dict[str, float] = {}
+        # checkpoint schedule: saves so far, the last fresh host copy of the
+        # buffer, and the background save worker with the error it hit
+        self._saves_done = 0
+        self._replay_host: Optional[Dict[str, Any]] = None
+        self._bg_save: Optional[threading.Thread] = None
+        self._bg_save_error: Optional[BaseException] = None
         self.logger = logger or setup_logger(
             config.logging.log_dir, run_name, level=config.logging.log_level,
             use_tensorboard=config.logging.use_tensorboard,
@@ -115,27 +127,97 @@ class AlphaZeroPipeline:
                            "host": self.host_generator.get_state()},
         }
 
-    def save_checkpoint(self) -> str:
-        """Checkpoint the whole training state (``it_<iteration>``), then
-        keep only the newest with ``save_best_only``. Returns once the host
-        copy is taken; the write runs in the background with
-        ``async_checkpointing``."""
+    def _join_bg_save(self) -> None:
+        """Wait for the background save worker, if any, and raise the error
+        it hit. Called before the next save, a restore and the loop's exit.
+        Nothing else needs it: the worker reads only its snapshot."""
+        worker, self._bg_save = self._bg_save, None
+        if worker is not None:
+            worker.join()
+        if self._bg_save_error is not None:
+            err, self._bg_save_error = self._bg_save_error, None
+            raise err
+
+    def _finish_save(self, tree: Dict[str, Any], due: bool, interval: int,
+                     iteration: int, async_save: bool,
+                     ready: Optional["torch.cuda.Event"] = None) -> str:
+        """Host copy (after ``ready``, see ``checkpoint.to_host``), the
+        buffer's last fresh copy when this save is not ``due``, the write
+        and the prune. Runs on the loop's thread or on the background
+        worker; reads only ``tree`` and ``_replay_host``, which no other
+        save touches while it runs."""
+        t0 = time.perf_counter()
+        host = ckpt_lib.to_host(tree, ready, self.device)
+        if not due:
+            host["replay"] = self._replay_host
+        elif interval > 1:
+            self._replay_host = host["replay"]
+        copy_s = time.perf_counter() - t0
         path = ckpt_lib.save_checkpoint(
-            self.config.training.checkpoint_dir, self.iteration,
-            self._checkpoint_tree(),
-            async_save=self.config.training.async_checkpointing)
-        self.logger.info("checkpoint %s: %s", "save scheduled (async)"
-                         if self.config.training.async_checkpointing
-                         else "saved", path)
+            self.config.training.checkpoint_dir, iteration, host,
+            async_save=async_save, host_copy=True)
+        self.logger.info("checkpoint %s: %s (host copy %.3f s, replay %s)",
+                         "save scheduled (async)" if async_save else "saved",
+                         path, copy_s, "fresh" if due else "reused")
         if self.config.logging.save_best_only:
             for old in ckpt_lib.prune_checkpoints(
                     self.config.training.checkpoint_dir, keep_latest=1):
                 self.logger.info("pruned old checkpoint: %s", old)
         return path
 
+    def save_checkpoint(self, fresh_replay: bool = False) -> str:
+        """Checkpoint the whole training state (``it_<iteration>``), then
+        keep only the newest with ``save_best_only``.
+
+        The replay buffer is most of a checkpoint's bytes. With
+        ``replay_checkpoint_interval`` K > 1 it is copied fresh only on the
+        first save, every K-th save (counted in saves, not iterations) and
+        a save with ``fresh_replay`` (the run's last save and the interrupt
+        save); the other saves store the last fresh copy.
+
+        Returns once the host copy is taken; the write runs in the
+        background with ``async_checkpointing``. With
+        ``background_checkpoint_fetch`` as well, the loop only clones the
+        state on the device (``checkpoint.snapshot``) and a worker thread
+        takes the host copy and writes it, overlapping the next iteration.
+        The clone is what makes that safe in torch: the replay insert, SGD
+        and a promotion write the live tensors in place, so a worker that
+        copied them directly would need a join before each of those writes
+        (JAX, whose arrays are immutable, joins only before it donates
+        them). The clone costs one device copy of the state (about 115 MB
+        at the flagship's 200,000-row buffer) and a launch per tensor."""
+        self._join_bg_save()  # at most one save in flight
+        cfg = self.config.training
+        interval = max(1, cfg.replay_checkpoint_interval)
+        due = (interval == 1 or fresh_replay or self._saves_done == 0
+               or self._saves_done % interval == 0)
+        self._saves_done += 1
+        tree = self._checkpoint_tree()
+        if not due:
+            tree["replay"] = None  # the last fresh copy goes in instead
+        iteration = self.iteration
+        if not (cfg.async_checkpointing and cfg.background_checkpoint_fetch):
+            return self._finish_save(tree, due, interval, iteration,
+                                     cfg.async_checkpointing)
+        clone, ready = ckpt_lib.snapshot(tree, self.device)
+
+        def work():
+            try:
+                # the worker already runs beside the loop: write in place
+                self._finish_save(clone, due, interval, iteration, False,
+                                  ready)
+            except BaseException as e:  # raised by the next join
+                self._bg_save_error = e
+
+        self._bg_save = threading.Thread(target=work, daemon=True,
+                                         name=f"bgsave:{iteration}")
+        self._bg_save.start()
+        return ckpt_lib.checkpoint_path(cfg.checkpoint_dir, iteration)
+
     def load_checkpoint(self, path: Optional[str] = None) -> bool:
         """Restore the whole training state; ``path=None`` loads the latest.
         Returns False when there is none."""
+        self._join_bg_save()
         if path is None:
             path = ckpt_lib.latest_checkpoint(
                 self.config.training.checkpoint_dir)
@@ -252,6 +334,28 @@ class AlphaZeroPipeline:
                 "eval/random_elo": board["random"],
                 "eval/promoted": float(promoted)}
 
+    def _log_replay_embedding(self, step: int, n: int = 256) -> None:
+        """TensorBoard projector embedding of up to ``n`` buffered positions
+        (their flattened canonical planes), labelled by value target, as
+        ``v=+0.50``. Skipped without TensorBoard or with an empty buffer.
+
+        The sample's generator is seeded from ``(config.seed, 0x10C,
+        step)``, never from the training generators, so logging cannot
+        change training: the same seed gives the same weights, buffer and
+        generator states with TensorBoard on or off."""
+        if (not self.config.logging.use_tensorboard or not self.buffer.size
+                or self.logger.writer is None):
+            return
+        seed = int(np.random.SeedSequence(
+            [self.config.seed, 0x10C, step]).generate_state(1, np.uint64)[0])
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        planes, _, value = replay_lib.sample(self.buffer, gen,
+                                             min(n, self.buffer.size))
+        flat = planes.reshape(planes.shape[0], -1).cpu()
+        labels = [f"v={v:+.2f}" for v in value.tolist()]
+        self.logger.log_embedding("replay/positions", flat, metadata=labels,
+                                  step=step)
+
     # -- main loop ----------------------------------------------------------
     def train(self, num_iterations: Optional[int] = None) -> None:
         """Run iterations until ``num_iterations`` (default
@@ -272,9 +376,12 @@ class AlphaZeroPipeline:
                 eval_metrics = self._evaluate_model()
                 t_ev = time.time()
                 self.iteration = it + 1
-                if (logging_cfg.save_checkpoints and self.iteration
-                        % self.config.training.save_interval == 0):
-                    self.save_checkpoint()
+                saved = (logging_cfg.save_checkpoints and self.iteration
+                         % self.config.training.save_interval == 0)
+                if saved:
+                    # the run's last checkpoint always carries the live
+                    # buffer, whatever replay_checkpoint_interval says
+                    self.save_checkpoint(fresh_replay=self.iteration >= total)
                 t_ck = time.time()
 
                 metrics = {
@@ -298,15 +405,21 @@ class AlphaZeroPipeline:
                 self.metrics_history.append(metrics)
                 self.logger.log_metrics(metrics, it)
                 self.logger.log_learning_rate(metrics["train/lr"], it)
+                if saved:
+                    self._log_replay_embedding(it)
         except KeyboardInterrupt:
             self.logger.warning("interrupted - saving checkpoint")
-            try:  # a failed background write must not block the rescue
-                ckpt_lib.wait_for_saves()
-            except Exception as e:
-                self.logger.error("background checkpoint save failed: %s", e)
-            self.save_checkpoint()
+            for wait in (self._join_bg_save, ckpt_lib.wait_for_saves):
+                try:  # a failed earlier save must not block the rescue
+                    wait()
+                except Exception as e:
+                    self.logger.error("background checkpoint save failed: "
+                                      "%s", e)
+            # the interrupt save carries the live buffer
+            self.save_checkpoint(fresh_replay=True)
             raise
         finally:
+            self._join_bg_save()
             ckpt_lib.wait_for_saves()
             if logging_cfg.save_checkpoints and logging_cfg.save_best_only:
                 for old in ckpt_lib.prune_checkpoints(

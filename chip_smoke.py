@@ -19,7 +19,9 @@ Phases (each raises on failure; the script exits 1 if any failed):
    and the bound; ``azr_round_backup`` also at the default config's PUCT
    shapes (N=401, 60 levels a lane: B=1024 self-play, B=1 ``analyze``, and
    B=64 at L=4 with forced in-round duplicates), where P > 32 takes the
-   kernel's stepwise path;
+   kernel's stepwise path, and at the bench's multi-leaf shapes (B=1024:
+   PUCT-400 at L=16, N=401, 24 levels, P=384; the tiny-net points at L=8,
+   N=33, 4 levels, P=32);
 3. ``flagship_selfplay``: one flagship self-play batch
    (``configs/flagship_run.json``: 1024 games, Gumbel-32, 4 stages, tree
    reuse, 60 moves, the 5x128 bf16 ResNet with seeded random weights);
@@ -57,7 +59,7 @@ Phases (each raises on failure; the script exits 1 if any failed):
     checkpoint per iteration, pruning;
 12. ``default_selfplay``: ``configs/default_config.json`` as written (1024
     games, PUCT-400 with Dirichlet noise, the temperature schedule,
-    max_depth 64, the 5x128 bf16 net), cut to 3 move slots: 400 fresh
+    max_depth 64, the 5x128 bf16 net), cut to 2 move slots: 400 fresh
     visits on every live root, legal moves, 400 ``azr_round_backup``
     launches a slot, kernel launches per 60-level round (profiled);
 13. ``default_iteration_cli``: ``cli train`` for one iteration and
@@ -68,12 +70,20 @@ Phases (each raises on failure; the script exits 1 if any failed):
     CPU: visit counts and per-unit scores equal;
 15. ``host_play``: ``import-checkpoint`` of a reference-format ``.pth``,
     ``analyze`` at 400 simulations, ``analyze --solve 14``, ``play`` driven
-    through stdin for four agent moves, and a transposition-table hit.
+    through stdin for four agent moves, and a transposition-table hit;
+16. ``bench``: the benchmark module's functions (env, the tiny-net PUCT
+    and Gumbel points, the PUCT-400 and flagship Gumbel points cut, one
+    roofline cell, the solvers, a profiled search), each row checked and
+    its cut named;
+17. ``pipeline_leftovers``: three flagship iterations through ``cli
+    train``, cut in games, simulations and SGD steps, with the background
+    checkpoint fetch and ``replay_checkpoint_interval`` 2: which saves
+    carry a fresh buffer, and every checkpoint holds the state at its save.
 
 Prints the ``kernels``, ``selfplay``, ``cuda_vs_cpu``, ``gate``,
 ``checkpoint``, ``pipeline_cli``, ``iteration_cli``, ``default_selfplay``,
-``default_iteration_cli``, ``puct_cuda_vs_cpu``, ``host_play`` and
-``training`` JSON lines (``training.iteration_s`` sums the separately
+``default_iteration_cli``, ``puct_cuda_vs_cpu``, ``host_play``, ``bench``,
+``pipeline_leftovers`` and ``training`` JSON lines (``training.iteration_s`` sums the separately
 timed phases 3-6; ``iteration_cli_s`` is the pipeline's own iteration
 from phase 7; each kernel row's ``launches`` counts the main paths' launches
 at its shape, and ``launches_other_shapes`` the rest, each with its shape),
@@ -831,6 +841,7 @@ def checkpoint_roundtrip(results: dict, carry: dict) -> None:
         t0 = time.perf_counter()
         path = pipe.save_checkpoint()
         blocking_s = time.perf_counter() - t0
+        pipe._join_bg_save()  # background_checkpoint_fetch: the worker
         ckpt.wait_for_saves()
         total_s = time.perf_counter() - t0
         nbytes = (Path(path) / ckpt.STATE_FILE).stat().st_size
@@ -843,7 +854,9 @@ def checkpoint_roundtrip(results: dict, carry: dict) -> None:
         if fresh.buffer.planes.device.type != "cuda":
             raise AssertionError("the restored buffer is not on the card")
     results["checkpoint"] = dict(
-        async_save=cfg.training.async_checkpointing, blocking_s=blocking_s,
+        async_save=cfg.training.async_checkpointing,
+        background_fetch=cfg.training.background_checkpoint_fetch,
+        blocking_s=blocking_s,
         total_s=total_s, restore_s=restore_s, bytes=nbytes, equal=True)
 
 
@@ -1032,7 +1045,12 @@ def gate_cuda_matches_cpu(results: dict) -> None:
 PUCT_SHAPES = (  # (entry, batch, nodes, levels, links, forced duplicates)
     ("round_backup_puct", 1024, 401, 60, 1, False),
     ("round_backup_analyze", 1, 401, 60, 1, False),
-    ("round_backup_dups", 64, 401, 60, 4, True))
+    ("round_backup_dups", 64, 401, 60, 4, True),
+    # the bench's multi-leaf points: PUCT-400 at leaf_batch 16 (its last
+    # stage: 24 levels, P=384) and the tiny-net PUCT-32 / Gumbel-32 at
+    # leaf_batch 8 (one stage of 4 levels, P=32)
+    ("round_backup_lb16", 1024, 401, 24, 16, False),
+    ("round_backup_lb8", 1024, 33, 4, 8, False))
 
 
 def check_round_kernel_puct(results: dict) -> None:
@@ -1042,7 +1060,10 @@ def check_round_kernel_puct(results: dict) -> None:
     (B=1024, L=1) and ``analyze`` (B=1) must equal the plain version on the
     CPU and on the card bit for bit; B=64 at L=4 with lane 1 repeating lane
     0 in every game (in-round duplicates, linked once) the CPU plain
-    version. Each shape is timed as the flagship's is."""
+    version. And at the bench's multi-leaf shapes (B=1024): PUCT-400 at
+    L=16 (N=401, 24 levels, P=384: twelve 32-entry chunks) and the tiny-net
+    points at L=8 (N=33, 4 levels, P=32), with in-round duplicates, equal
+    to the CPU plain version. Each shape is timed as the flagship's is."""
     from alphazero_reversi_tpu_torch.mcts import cuda_backup
     from torch_round_inputs import round_inputs
 
@@ -1084,7 +1105,7 @@ def default_selfplay(results: dict) -> None:
     """``configs/default_config.json`` as written: 1024 games, PUCT-400,
     c_puct 1, Dirichlet alpha 0.03 / epsilon 0.25, the temperature
     schedule, max_depth 64, 6 stages, leaf_batch 1, the 5x128 bf16 ResNet
-    with random weights from the config's seed; cut to 3 move slots (each
+    with random weights from the config's seed; cut to 2 move slots (each
     its own ``play_games`` call from the last one's states, so each is
     timed; the first also warms up). Every search must give each live root
     400 fresh visits, every round launch ``azr_round_backup`` once, every
@@ -1107,7 +1128,7 @@ def default_selfplay(results: dict) -> None:
     torch.manual_seed(cfg.seed)
     net = resnet.build_network(cfg.model).cuda()
     kw = selfplay.search_kwargs(mc, cfg.self_play, cfg.env_compat)
-    games, slots = cfg.self_play.num_parallel_games, 3
+    games, slots = cfg.self_play.num_parallel_games, 2
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     searches = []
     real = search.run_search
@@ -1172,7 +1193,7 @@ def default_selfplay(results: dict) -> None:
     per_slot = sum(slot_s[1:]) / (slots - 1)
     results["default_selfplay"] = dict(
         config="configs/default_config.json", games=games,
-        cut="max_moves 60 -> 3 move slots (3 play_games calls of 1 slot)",
+        cut="max_moves 60 -> 2 move slots (2 play_games calls of 1 slot)",
         slot_s=slot_s, s_per_move_slot=per_slot,
         moves_per_s=games / per_slot,
         round_backup_launches=launches, round_backup_per_slot=launches //
@@ -1474,6 +1495,237 @@ def host_play(results: dict) -> None:
         tt_first_s=times[0], tt_hit_s=times[1], tt_hits=tt.hits)
 
 
+def _rates_ok(row: dict) -> None:
+    """Every rate (``*_per_s``) and time (``time_per_*``, ``seconds``) of a
+    bench row must be finite and positive."""
+    for k, v in row.items():
+        if (k.endswith("_per_s") or k.startswith("time_per_")
+                or k == "seconds") and not (np.isfinite(v) and v > 0):
+            raise AssertionError(f"bench row {k}={v}: {row}")
+
+
+def bench(results: dict) -> None:
+    """The port's benchmark module (``alphazero_reversi_tpu_torch.
+    benchmarks``) on the card, each call with the round kernel's counter
+    set to 0 before it and read after: ``bench_env`` at full size (B=8192,
+    512 steps, best of 5; it raises if a final board has a square held by
+    both colours); the tiny-net PUCT-32 and Gumbel-32 points at full size
+    (B=1024, leaf_batch 8, 16 moves, best of 3); the PUCT-400 point at
+    leaf_batch 16 cut to 1 move and 1 repeat; Gumbel-32 on the flagship
+    net cut to 2 moves and 1 repeat; one roofline cell (the flagship net,
+    PUCT-400 at leaf_batch 16, 1 repeat); ``bench_solver`` at 12 empties;
+    ``solver-batch`` cut to 256 positions (it raises unless every position
+    is solved, and its values must equal a one-by-one ``solve_wdl`` on a
+    sample); ``profile_search`` cut to 8 simulations, whose trace must hold
+    one backup kernel event a round. Every row's rates must be finite and
+    positive; each search round must launch ``azr_round_backup`` once."""
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import benchmarks as bm
+    from alphazero_reversi_tpu_torch.env import endgame
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+
+    points = {point: kw for _, point, _, _, kw in bm.HEADLINE}
+    flagship_net = {"name": "flagship-5x128", "blocks": 5, "filters": 128}
+    with tempfile.TemporaryDirectory() as tmp:
+        calls = (  # name, cut, call, kernel row, rounds a search
+            ("env", "none", lambda: bm.bench_env(**points["env"]), None, 0),
+            ("mcts_peak", "none",
+             lambda: bm.bench_mcts_sustained(**points["mcts_peak"]),
+             "round_backup_lb8", 4),
+            ("gumbel", "none",
+             lambda: bm.bench_mcts_sustained(**points["gumbel"]),
+             "round_backup_lb8", 4),
+            ("mcts", "moves 4 -> 1, repeats 3 -> 1",
+             lambda: bm.bench_mcts_sustained(**{
+                 **points["mcts"], "leaf_batch": 16, "moves": 1,
+                 "repeats": 1}), "round_backup_lb16", 25),
+            ("gumbel_flagship", "moves 16 -> 2, repeats 3 -> 1",
+             lambda: bm.bench_mcts_sustained(**{
+                 **points["gumbel_flagship"], "moves": 2, "repeats": 1}),
+             "round_backup", 32),
+            ("roofline", "one cell (flagship net, 400 sims, leaf_batch 16), "
+             "repeats 3 -> 1",
+             lambda: bm.bench_roofline(1024, [400], [16], [flagship_net],
+                                       repeats=1), "round_backup_lb16", 25),
+            ("solver", "empties [8, 12, 14, 16] -> [12]",
+             lambda: bm.bench_solver([12]), None, 0),
+            ("solver_batch", "positions 2048 -> 256",
+             lambda: bm.bench_solver_batch(256, 12), None, 0),
+            ("profile", "simulations 400 -> 8",
+             lambda: bm.profile_search(tmp, num_simulations=8),
+             "other", 8))
+        out = {}
+        for name, cut, call, row_name, rounds in calls:
+            torch.cuda.synchronize()
+            cuda_backup.ROUND_LAUNCHES = 0
+            t0 = time.perf_counter()
+            rows = call()
+            wall_s = _sync_s(t0)
+            launches = cuda_backup.ROUND_LAUNCHES
+            if (launches == 0) != (rounds == 0) or (
+                    rounds and launches % rounds):
+                raise AssertionError(f"bench {name}: {launches} round "
+                                     f"kernel launches, {rounds} a search")
+            if row_name == "other":  # a PUCT search at another shape
+                results["round_backup_puct"]["launches_other_shapes"][
+                    "bench profile (B=1024 N=9 levels<=8 L=1)"] = launches
+            elif row_name is not None:
+                results[row_name]["launches_by_path"][f"bench_{name}"] = \
+                    launches
+            for row in rows if isinstance(rows, list) else [rows]:
+                _rates_ok(row)
+            out[name] = dict(cut=cut, wall_s=wall_s,
+                             round_backup_launches=launches, rows=rows)
+
+        prof = out["profile"]["rows"]
+        if prof["round_backup_kernels"] != 8:
+            raise AssertionError(f"profile: {prof['round_backup_kernels']} "
+                                 "backup kernel events for 8 rounds")
+        with open(prof["trace"]) as f:
+            named = sum(bm.ROUND_BACKUP_KERNEL in e.get("name", "")
+                        for e in json.load(f)["traceEvents"])
+        if named < 8:
+            raise AssertionError(f"the trace file holds {named} backup "
+                                 "kernel events")
+        prof["trace_file_backup_events"] = named
+
+    # solver-batch: a sample of its positions solved one by one
+    black, white, mover = bm.endgame_positions(256, 12)
+    values, solved, _ = endgame.EndgameSolver().solve_wdl_batch(
+        black, white, mover)
+    solver = endgame.EndgameSolver()
+    for i in range(0, 256, 16):
+        one = solver.solve_wdl(int(black[i]), int(white[i]), int(mover[i]))
+        if not solved[i] or np.sign(one.value) != np.sign(values[i]):
+            raise AssertionError(f"solver-batch position {i}: {values[i]} "
+                                 f"vs solve_wdl {one.value}")
+    out["solver_batch"]["one_by_one_sample_equal"] = 16
+    results["bench"] = out
+
+
+def pipeline_leftovers(results: dict) -> None:
+    """Three iterations through ``cli train`` of ``configs/flagship_run
+    .json`` with ``background_checkpoint_fetch`` on (as the flagship ships
+    it) and ``replay_checkpoint_interval`` 2, cut for time: 64 games of
+    Gumbel-8 self-play, SGD in one chunk of 16 steps at batch 256 (64
+    games give at most 3,840 positions), a 1-round gate at Gumbel-2, every
+    checkpoint kept; the replay capacity (200,000 rows, the ~115 MB host
+    copy) and the rest stay the flagship's. Each save is recorded (the
+    state a host copy taken as ``save_checkpoint`` returns, before the loop
+    goes on). Checks: save 1 is due and holds the live buffer; save 2 is
+    not due and holds save 1's buffer; save 3, the run's last, holds the
+    live buffer; each checkpoint's weights and AdamW state equal the state
+    at its save, though SGD ran after it. Reports the seconds the loop
+    waited in each save against the worker's host copy."""
+    import re
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch import cli
+    from alphazero_reversi_tpu_torch import pipeline
+    from alphazero_reversi_tpu_torch.config import Config
+
+    cfg = Config.load(str(ROOT / "configs" / "flagship_run.json"))
+    if not cfg.training.background_checkpoint_fetch:
+        raise AssertionError("the flagship config no longer fetches "
+                             "checkpoints in the background")
+    cuts = {"self_play.num_games": 64, "mcts.num_simulations": 8,
+            "training.batch_size": 256, "training.steps_per_dispatch": 16,
+            "tournament.rounds": 1, "tournament.num_simulations": 2,
+            "training.replay_checkpoint_interval": 2,
+            "logging.save_best_only": False, "logging.verbose": False}
+    cfg.self_play.num_games = cfg.self_play.num_parallel_games = 64
+    cfg.mcts.num_simulations = 8
+    cfg.training.batch_size, cfg.training.steps_per_dispatch = 256, 16
+    cfg.tournament.rounds, cfg.tournament.num_simulations = 1, 2
+    cfg.training.replay_checkpoint_interval = 2
+    cfg.logging.save_best_only, cfg.logging.verbose = False, False
+
+    real = pipeline.AlphaZeroPipeline.save_checkpoint
+    saves = []
+
+    def recording(self, fresh_replay=False):
+        t0 = time.perf_counter()
+        path = real(self, fresh_replay=fresh_replay)
+        blocking_s = time.perf_counter() - t0
+        state, buf = self.learner.state, self.buffer
+        saves.append(dict(
+            path=path, blocking_s=blocking_s, fresh_replay=fresh_replay,
+            net=ckpt.to_host(state.net.state_dict()),
+            optimizer=ckpt.to_host(state.optimizer.state_dict()),
+            replay=ckpt.to_host({"planes": buf.planes, "policy": buf.policy,
+                                 "value": buf.value, "cursor": buf.cursor,
+                                 "size": buf.size})))
+        return path
+
+    def equal(a, b) -> bool:
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(equal, a, b))
+        return a == b
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = str(Path(tmp) / "config.json")
+        cfg.save(cfg_path)
+        pipeline.AlphaZeroPipeline.save_checkpoint = recording
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cli.main(["train", "-c", cfg_path, "--iterations", "3",
+                         "--run-dir", tmp, "--run-name", "leftovers"]) != 0:
+                raise AssertionError("cli train failed")
+            wall_s = _sync_s(t0)
+        finally:
+            pipeline.AlphaZeroPipeline.save_checkpoint = real
+        (run,) = Path(tmp).glob("run_*")
+        log = (run / "logs" / "leftovers" / "training.log").read_text()
+        rows = [json.loads(line) for line in
+                (run / "logs" / "leftovers" / "metrics.jsonl").read_text()
+                .splitlines()]
+        if [x["fresh_replay"] for x in saves] != [False, False, True] \
+                or [r["step"] for r in rows] != [0, 1, 2]:
+            raise AssertionError(f"{len(saves)} saves, steps "
+                                 f"{[r['step'] for r in rows]}")
+        trees = [ckpt.restore_checkpoint(s["path"]) for s in saves]
+    for i, (tree, rec) in enumerate(zip(trees, saves), 1):
+        if tree["iteration"] != i:
+            raise AssertionError(f"save {i} holds iteration "
+                                 f"{tree['iteration']}")
+        if not (equal(tree["learner"]["net"], rec["net"])
+                and equal(tree["learner"]["optimizer"], rec["optimizer"])):
+            raise AssertionError(f"save {i}: weights or AdamW state differ "
+                                 "from the state at the save")
+    if equal(saves[0]["net"], saves[1]["net"]):
+        raise AssertionError("no SGD ran between saves 1 and 2")
+    replay_want = (saves[0]["replay"], saves[0]["replay"],
+                   saves[2]["replay"])
+    for i, (tree, want) in enumerate(zip(trees, replay_want), 1):
+        if not equal(tree["replay"], want):
+            raise AssertionError(f"save {i}'s replay buffer is not the "
+                                 "expected one")
+    if equal(saves[1]["replay"], saves[0]["replay"]):
+        raise AssertionError("the buffer did not change between saves")
+    copies = [float(x) for x in re.findall(r"host copy ([0-9.]+) s", log)]
+    fresh = re.findall(r"replay (fresh|reused)", log)
+    if fresh != ["fresh", "reused", "fresh"]:
+        raise AssertionError(f"replay copies {fresh}")
+    results["pipeline_leftovers"] = dict(
+        config="configs/flagship_run.json", cuts=cuts, iterations=3,
+        wall_s=wall_s, saves_due=fresh,
+        save_blocking_s=[x["blocking_s"] for x in saves],
+        worker_host_copy_s=copies,
+        checkpoint_metric_s=[r["checkpoint/seconds"] for r in rows],
+        iteration_s=[sum(r[f"{k}/seconds"] for k in
+                         ("selfplay", "train", "eval", "checkpoint"))
+                     for r in rows],
+        replay_rows=[x["replay"]["size"] for x in saves],
+        states_equal_at_save=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1533,6 +1785,8 @@ def main() -> int:
               lambda: default_iteration_cli(results))
         phase("puct_cuda_vs_cpu", lambda: puct_cuda_matches_cpu(results))
         phase("host_play", lambda: host_play(results))
+        phase("bench", lambda: bench(results))
+        phase("pipeline_leftovers", lambda: pipeline_leftovers(results))
 
     kernels = [results[k] for k in ("backup_link", "round_backup",
                                     *(x[0] for x in PUCT_SHAPES))
@@ -1557,7 +1811,8 @@ def main() -> int:
     if "iteration_cli" in results:
         print(json.dumps({"iteration_cli": results["iteration_cli"]}))
     for name in ("default_selfplay", "default_iteration_cli",
-                 "puct_cuda_vs_cpu", "host_play"):
+                 "puct_cuda_vs_cpu", "host_play", "bench",
+                 "pipeline_leftovers"):
         if name in results:
             print(json.dumps({name: results[name]}))
     if "training" in results:

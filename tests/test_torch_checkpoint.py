@@ -3,6 +3,7 @@ exact round trip of the pipeline's whole state into a fresh pipeline, host
 copies taken at save time, atomic writes (an interrupted write is never
 found), background writes, pruning and the best model."""
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -175,3 +176,162 @@ def test_best_model_round_trip(tmp_path):
     again = tpipeline.AlphaZeroPipeline(cfg, device="cpu")
     for k, v in again.best_net.state_dict().items():
         assert torch.equal(v, pipe.net.state_dict()[k] * 2)
+
+
+# ------------------------------------------- replay interval, background
+def _add_rows(pipe, seed, n=8):
+    """Insert ``n`` fresh random rows, so the live buffer changes."""
+    rng = np.random.default_rng(seed)
+    planes = torch.from_numpy(rng.integers(0, 2, (n, 8, 8, 3))
+                              .astype(np.float32))
+    policy = torch.from_numpy(rng.dirichlet(np.ones(65), n)
+                              .astype(np.float32))
+    value = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+    pipe.buffer = replay.add(pipe.buffer, planes, policy, value,
+                             torch.ones(n, dtype=torch.bool))
+
+
+def _buffer(pipe):
+    b = pipe.buffer
+    return {"planes": b.planes.clone(), "policy": b.policy.clone(),
+            "value": b.value.clone(), "cursor": b.cursor, "size": b.size}
+
+
+def _saved_buffer(pipe, iteration):
+    ckpt.wait_for_saves()
+    return ckpt.restore_checkpoint(ckpt.checkpoint_path(
+        pipe.config.training.checkpoint_dir, iteration))["replay"]
+
+
+def _assert_buffers_equal(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]) if k in ("planes", "policy", "value") \
+            else a[k] == b[k], k
+
+
+@pytest.mark.parametrize("background", [False, True],
+                         ids=["loop", "background"])
+def test_replay_checkpoint_interval(tmp_path, background):
+    """At interval 2 over 4 saves (counted in saves), saves 1 and 3 carry
+    the live buffer and saves 2 and 4 the last fresh copy; a save with
+    ``fresh_replay`` (the run's last or the interrupt save) carries the
+    live buffer whatever the count. The background fetch saves the same."""
+    pipe = _trained_pipeline(tmp_path, 1)
+    tr = pipe.config.training
+    tr.replay_checkpoint_interval = 2
+    tr.async_checkpointing = tr.background_checkpoint_fetch = background
+    pipe.config.logging.save_best_only = False
+    live, fresh = [], []
+    for it, fresh_replay in ((1, False), (2, False), (3, False), (4, False),
+                             (5, True)):
+        _add_rows(pipe, it)
+        pipe.iteration = it
+        live.append(_buffer(pipe))
+        pipe.save_checkpoint(fresh_replay=fresh_replay)
+    pipe._join_bg_save()
+    want = [live[0], live[0], live[2], live[2], live[4]]
+    for it, w in enumerate(want, 1):
+        _assert_buffers_equal(_saved_buffer(pipe, it), w)
+    assert not torch.equal(live[0]["planes"], live[1]["planes"])
+
+
+def _fake_phases(pipe, monkeypatch, interrupt_at=None):
+    """Replace the iteration's phases by an insert of fresh rows and fixed
+    metrics; the SGD phase of iteration ``interrupt_at`` is interrupted."""
+    def selfplay():
+        _add_rows(pipe, 100 + pipe.iteration)
+        return 8
+
+    def train(n):
+        if pipe.iteration == interrupt_at:
+            raise KeyboardInterrupt
+        return {"loss": 1.0, "policy_loss": 0.5, "value_loss": 0.5,
+                "grad_norm": 1.0, "steps": 1}
+
+    monkeypatch.setattr(pipe, "_generate_self_play_data", selfplay)
+    monkeypatch.setattr(pipe, "_train_epoch", train)
+    monkeypatch.setattr(pipe, "_evaluate_model", lambda: {
+        "eval/elo": 0.0, "eval/best_elo": 0.0, "eval/random_elo": 0.0,
+        "eval/promoted": 0.0})
+
+
+def test_final_and_interrupt_saves_carry_the_live_buffer(tmp_path,
+                                                         monkeypatch):
+    """Through ``train`` at interval 3: the run's last save (its second)
+    carries the live buffer, not the first save's; a save forced by an
+    interrupt in the next iteration carries the buffer as the interrupted
+    iteration left it."""
+    pipe = tpipeline.AlphaZeroPipeline(tiny_run_config(str(tmp_path)),
+                                       device="cpu")
+    pipe.config.training.replay_checkpoint_interval = 3
+    pipe.config.logging.save_best_only = False
+    _fake_phases(pipe, monkeypatch, interrupt_at=2)
+    pipe.train(num_iterations=2)
+    first, last = _saved_buffer(pipe, 1), _saved_buffer(pipe, 2)
+    _assert_buffers_equal(last, _buffer(pipe))
+    assert first["size"] < last["size"]
+    with pytest.raises(KeyboardInterrupt):
+        pipe.train(num_iterations=3)  # the third save: not due by count
+    _assert_buffers_equal(_saved_buffer(pipe, 2), _buffer(pipe))
+    assert _saved_buffer(pipe, 2)["size"] == last["size"] + 8
+
+
+def test_background_save_holds_the_state_at_save(tmp_path, monkeypatch):
+    """With ``background_checkpoint_fetch`` the loop goes on while the
+    worker copies: weights, AdamW's state, best weights and buffer written
+    in place before the worker runs do not reach the checkpoint."""
+    pipe = _trained_pipeline(tmp_path, 2)
+    tr = pipe.config.training
+    tr.async_checkpointing = tr.background_checkpoint_fetch = True
+    before = ckpt.to_host(pipe._checkpoint_tree())
+    go, order = threading.Event(), []
+    real = ckpt.to_host
+
+    def held(*args, **kwargs):
+        assert go.wait(30)
+        order.append("copy")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ckpt, "to_host", held)
+    pipe.save_checkpoint()
+    with torch.no_grad():
+        for p in [*pipe.learner.net.parameters(),
+                  *pipe.best_net.parameters()]:
+            p.add_(1.0)
+    for st in pipe.learner.state.optimizer.state.values():
+        st["exp_avg"].add_(1.0)
+    _add_rows(pipe, 3)
+    order.append("writes")
+    go.set()
+    pipe._join_bg_save()
+    assert order == ["writes", "copy"]
+    got = ckpt.restore_checkpoint(ckpt.latest_checkpoint(
+        tr.checkpoint_dir))
+    for part in ("learner", "best", "replay"):
+        for x, y in zip(_leaves(got[part]), _leaves(before[part])):
+            assert torch.equal(x, y) if isinstance(x, torch.Tensor) \
+                else x == y, part
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree, key=str) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def test_background_save_error_raised_at_next_join(tmp_path, monkeypatch):
+    pipe = _trained_pipeline(tmp_path, 3)
+    tr = pipe.config.training
+    tr.async_checkpointing = tr.background_checkpoint_fetch = True
+
+    def broken(*args, **kwargs):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ckpt, "save_checkpoint", broken)
+    pipe.save_checkpoint()  # the worker fails
+    with pytest.raises(OSError, match="disk full"):
+        pipe.save_checkpoint()
+    pipe._join_bg_save()  # raised once

@@ -411,3 +411,60 @@ def test_puct_search_on_card_matches_cpu(card, leaf_batch):
     assert torch.equal(got.visit_counts.cpu(), ref.visit_counts)
     torch.testing.assert_close(got.root_value.cpu(), ref.root_value,
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("nodes_n,levels,links", [(401, 24, 16), (33, 4, 8)],
+                         ids=["puct400_lb16", "peak_lb8"])
+def test_round_backup_kernel_at_bench_shapes(card, nodes_n, levels, links):
+    """azr_round_backup at the bench's multi-leaf shapes (B=1024): PUCT-400
+    at leaf_batch 16 (N=401, its last stage's 24 levels, P=384: twelve
+    32-entry chunks on the stepwise path) and the tiny-net points' PUCT-32
+    / Gumbel-32 at leaf_batch 8 (N=33, 4 levels, P=32), both with in-round
+    duplicates; bit for bit equal to the plain version on the CPU."""
+    d = round_inputs(np.random.default_rng(nodes_n + links), 1024, nodes_n,
+                     levels, links)
+    before = cuda_backup.ROUND_LAUNCHES
+    got = _round(d, card, cuda_backup.round_backup)
+    torch.cuda.synchronize()
+    assert cuda_backup.ROUND_LAUNCHES == before + 1
+    for x, y in zip(got, _round(d, "cpu", cuda_backup.round_backup_reference)):
+        assert torch.equal(x.cpu(), y)
+
+
+def test_background_save_on_card_holds_the_state_at_save(card, tmp_path):
+    """A background checkpoint fetch on the card: SGD steps and a replay
+    insert issued right after the save, while the worker copies, do not
+    reach the checkpoint."""
+    import os
+    import sys
+
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch import pipeline
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_configs import tiny_run_config
+
+    cfg = tiny_run_config(str(tmp_path))
+    cfg.training.async_checkpointing = True
+    cfg.training.background_checkpoint_fetch = True
+    pipe = pipeline.AlphaZeroPipeline(cfg)
+    rows = _training_rows(64, 1)
+    pipe.buffer = replay.add(pipe.buffer, *(x.to(card) for x in rows))
+    pipe.learner.steps(pipe.buffer, pipe.generator, 2, 16)
+    pipe.iteration = 1
+    want = ckpt.to_host(pipe._checkpoint_tree())
+    pipe.save_checkpoint()
+    pipe.learner.steps(pipe.buffer, pipe.generator, 4, 16)
+    pipe.buffer = replay.add(pipe.buffer, *(x.to(card) for x in rows))
+    pipe._join_bg_save()
+    got = ckpt.restore_checkpoint(ckpt.latest_checkpoint(
+        cfg.training.checkpoint_dir))
+    for x, y in zip(got["learner"]["net"].values(),
+                    want["learner"]["net"].values()):
+        assert torch.equal(x, y)
+    for i, st in want["learner"]["optimizer"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(got["learner"]["optimizer"]["state"][i][k], v)
+    for k in ("planes", "policy", "value", "cursor", "size"):
+        x, y = got["replay"][k], want["replay"][k]
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y

@@ -336,6 +336,44 @@ def test_import_refuses_arbitrary_pickles(exported, tmp_path):
         interop.import_torch_checkpoint(bad)
 
 
+def test_cli_imports_a_full_state_reference_checkpoint(exported, tmp_path,
+                                                      capsys):
+    """The reference's full-state checkpoint (model, Adam and MultiStepLR
+    state dicts, the iteration, ``best_elo`` as a numpy scalar, a config
+    dict and metrics holding numpy scalars) imports through the CLI,
+    without arbitrary unpickling; one that also holds a numpy array, which
+    needs it, still raises the ValueError that names the file."""
+    raw = torch.load(exported[0])
+    params = [torch.nn.Parameter(v.clone()) for v in raw.values()
+              if v.is_floating_point()]
+    opt = torch.optim.Adam(params, lr=1e-3)
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    sched = torch.optim.lr_scheduler.MultiStepLR(opt, [10, 20], 0.1)
+    full = {"model_state_dict": raw, "optimizer_state_dict": opt.state_dict(),
+            "scheduler_state_dict": sched.state_dict(), "iteration": 7,
+            "best_elo": np.float64(1234.5),
+            "config": {"model": {"num_filters": 16}, "lr": 1e-3,
+                       "milestones": [10, 20], "name": "ref"},
+            "metrics": {"loss": np.float32(0.75), "elo": [np.float64(1200.0)],
+                        "games": np.int64(64)}}
+    path = str(tmp_path / "full.pth")
+    torch.save(full, path)
+    ckpt_dir = str(tmp_path / "ckpt")
+    assert cli.main(["--device", "cpu", "import-checkpoint", path,
+                     "-d", ckpt_dir]) == 0
+    assert "2x16 net, board 8" in capsys.readouterr().out
+    want, _ = interop.import_torch_checkpoint(exported[0])
+    got = ckpt.restore_best(ckpt_dir)
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    bad = str(tmp_path / "array.pth")
+    torch.save({**full, "metrics": {"losses": np.zeros(3)}}, bad)
+    with pytest.raises(ValueError, match="array.pth"):
+        interop.import_torch_checkpoint(bad)
+
+
 # ----------------------------------------------------------------- CLI
 def _cli_config(tmp_path, algorithm="puct") -> str:
     cfg = Config()

@@ -41,7 +41,8 @@ def test_port_never_imports_jax(path):
 def test_ast_check_covers_every_port_module():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for module in ("ops/random.py", "zobrist.py", "mcts/transposition.py",
-                   "mcts/search.py", "env/game.py", "interop.py", "cli.py"):
+                   "mcts/search.py", "env/game.py", "interop.py", "cli.py",
+                   "benchmarks.py"):
         assert f"alphazero_reversi_tpu_torch/{module}" in names
 
 

@@ -212,3 +212,24 @@ def test_shipped_puct_configs_train_one_iteration(tmp_path, name):
     (row,) = _metrics(tmp_path, "run")
     assert row["selfplay/positions"] == 40
     assert ckpt.latest_checkpoint(cfg.training.checkpoint_dir)
+
+
+def test_tensorboard_changes_no_training_state(straight, tmp_path):
+    """The same two iterations with TensorBoard on end in the same
+    checkpoint, bit for bit, as with it off (``straight``), and each
+    in-loop save was followed by a projector embedding of the buffer,
+    labelled by value target."""
+    cfg = _config_file(tmp_path, use_tensorboard=True)
+    assert cli.main(["--device", "cpu", "train", "-c", cfg,
+                     "--iterations", "2", "--run-name", "run"]) == 0
+    a = ckpt.restore_checkpoint(str(straight / "checkpoints" / "it_000002"))
+    b = ckpt.restore_checkpoint(str(tmp_path / "checkpoints" / "it_000002"))
+    _assert_trees_equal(a, b)
+    run = tmp_path / "logs" / "run"
+    projector = (run / "projector_config.pbtxt").read_text()
+    assert projector.count("replay/positions") == 2  # steps 0 and 1
+    for step in (0, 1):
+        (meta,) = run.glob(f"{step:05d}/replay*/metadata.tsv")
+        labels = meta.read_text().split()
+        assert 0 < len(labels) <= 256
+        assert all(x.startswith("v=") and len(x) == 7 for x in labels)

@@ -239,6 +239,22 @@ def test_round_backup_reference_matches_jax(links, seed):
         np.testing.assert_allclose(got[2], want[2], rtol=1e-6)
 
 
+@pytest.mark.parametrize("links", [8, 16, 32])
+def test_round_backup_reference_sums_root_values_in_lane_order(links):
+    """The plain version adds the lanes' signed values to ``root_vsum`` in
+    lane order, one float32 add at a time, as the kernel's lane 0 does (the
+    kernel is held bit for bit against it at the bench's L=8 and L=16)."""
+    d = round_inputs(np.random.default_rng(links), 256, 65, 4, links)
+    _, _, got = _torch_round_backup(d)
+    rsign = np.where(d["eval_tomove"] == d["root_to_move"][:, None], 1.0,
+                     -1.0).astype(np.float32)
+    signed = rsign * d["value"]
+    total = signed[:, 0].copy()
+    for lane in range(1, links):
+        total = (total + signed[:, lane]).astype(np.float32)
+    np.testing.assert_array_equal(got, d["root_vsum"] + total)
+
+
 def _round_args():
     return dict(stats=torch.zeros(2, S), pn=torch.zeros(2, 6, dtype=torch.long),
                 pa=torch.zeros(2, 6, dtype=torch.long), pt=torch.zeros(2, 6),
