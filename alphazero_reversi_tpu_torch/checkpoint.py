@@ -13,19 +13,19 @@ Writes are atomic: a save writes into a temporary directory beside the
 target (``.tmp_*``, which no reader matches) and renames it into place, so
 ``latest_checkpoint`` never finds a half-written checkpoint.
 
-A save first copies every tensor to host memory, on the caller's thread:
-that copy is all the caller waits for, and it must finish before the next
-SGD step changes the weights in place. With ``async_save`` a background
-thread then writes the file while the caller goes on. At most one write is
-in flight: a new save waits for the previous one, and readers call
-``wait_for_saves`` first.
+A save first copies every tensor to host memory (``to_host``), on the
+calling thread: that copy is all the caller waits for, and it must finish
+before the next SGD step changes the weights in place. With ``async_save``
+a background thread then writes the file while the caller goes on. At most
+one write is in flight: a new save waits for the previous one, and readers
+call ``wait_for_saves`` first.
 
-A caller that takes the host copy off its own thread (the pipeline's
+A caller that saves off its own thread (the pipeline's
 ``background_checkpoint_fetch``) first takes a ``snapshot``: a clone of
 every tensor where it lies, made on the caller's stream, and a CUDA event
-recorded after it. ``to_host`` of that snapshot on another thread waits
-for the event on a stream of its own, so it never sees a later in-place
-write and never holds up the caller's stream.
+recorded after it. A save of that snapshot on another thread, given the
+event, takes its host copy on a stream of its own behind the event, so it
+never sees a later in-place write and never holds up the caller's stream.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ import re
 import shutil
 import tempfile
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -46,6 +47,7 @@ BEST_FILE = "weights.pt"
 _LOCK = threading.Lock()  # guards _WRITER and _ERROR
 _WRITER: Optional[threading.Thread] = None
 _ERROR: Optional[BaseException] = None
+_LAST_COPY = threading.local()  # each thread's last host copy, seconds
 
 
 def _map_tensors(fn, tree: Any) -> Any:
@@ -139,9 +141,12 @@ def _write_atomic(path: str, filename: str, tree: Any) -> None:
 
 
 def _save(path: str, filename: str, tree: Any, async_save: bool,
-          host_copy: bool = False) -> str:
+          ready: Optional["torch.cuda.Event"] = None,
+          device: Optional[torch.device] = None) -> str:
     global _WRITER
-    host_tree = tree if host_copy else to_host(tree)
+    t0 = time.perf_counter()
+    host_tree = to_host(tree, ready, device)
+    _LAST_COPY.seconds = time.perf_counter() - t0
     wait_for_saves()  # at most one write in flight
     if not async_save:
         _write_atomic(path, filename, host_tree)
@@ -161,6 +166,12 @@ def _save(path: str, filename: str, tree: Any, async_save: bool,
         _WRITER = writer
     writer.start()
     return path
+
+
+def last_host_copy_seconds() -> float:
+    """Seconds the calling thread's last save spent on its host copy
+    (``to_host``)."""
+    return getattr(_LAST_COPY, "seconds", 0.0)
 
 
 def checkpoint_path(ckpt_dir: str, iteration: int) -> str:
@@ -184,14 +195,15 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 
 def save_checkpoint(ckpt_dir: str, iteration: int, tree: Dict[str, Any],
-                    async_save: bool = False, host_copy: bool = False) -> str:
+                    async_save: bool = False,
+                    ready: Optional["torch.cuda.Event"] = None,
+                    device: Optional[torch.device] = None) -> str:
     """Write ``tree`` as ``<ckpt_dir>/it_<iteration>`` (module docstring:
     host copy first, then an atomic write, in the background with
-    ``async_save``). ``host_copy`` says ``tree`` already is a host copy
-    that nothing else writes (``to_host``'s), and is written as it is.
-    Returns the path."""
+    ``async_save``). ``ready`` and ``device``: a ``snapshot``'s event and
+    device, as ``to_host`` takes them. Returns the path."""
     return _save(checkpoint_path(ckpt_dir, iteration), STATE_FILE, tree,
-                 async_save, host_copy)
+                 async_save, ready, device)
 
 
 def prune_checkpoints(ckpt_dir: str, keep_latest: int = 1) -> List[str]:

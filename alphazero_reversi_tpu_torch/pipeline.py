@@ -141,24 +141,28 @@ class AlphaZeroPipeline:
     def _finish_save(self, tree: Dict[str, Any], due: bool, interval: int,
                      iteration: int, async_save: bool,
                      ready: Optional["torch.cuda.Event"] = None) -> str:
-        """Host copy (after ``ready``, see ``checkpoint.to_host``), the
-        buffer's last fresh copy when this save is not ``due``, the write
-        and the prune. Runs on the loop's thread or on the background
-        worker; reads only ``tree`` and ``_replay_host``, which no other
-        save touches while it runs."""
+        """The save proper: the buffer's last fresh host copy when this save
+        is not ``due`` (a fresh one, kept for the next saves, when it is and
+        ``interval`` > 1), then ``checkpoint.save_checkpoint`` (host copy
+        after ``ready``, see ``checkpoint.to_host``; the write) and the
+        prune. Runs on the loop's thread or on the background worker; reads
+        only ``tree`` and ``_replay_host``, which no other save touches
+        while it runs."""
         t0 = time.perf_counter()
-        host = ckpt_lib.to_host(tree, ready, self.device)
         if not due:
-            host["replay"] = self._replay_host
+            tree = {**tree, "replay": self._replay_host}
         elif interval > 1:
-            self._replay_host = host["replay"]
-        copy_s = time.perf_counter() - t0
+            self._replay_host = ckpt_lib.to_host(tree["replay"], ready,
+                                                 self.device)
+            tree = {**tree, "replay": self._replay_host}
+        replay_s = time.perf_counter() - t0
         path = ckpt_lib.save_checkpoint(
-            self.config.training.checkpoint_dir, iteration, host,
-            async_save=async_save, host_copy=True)
+            self.config.training.checkpoint_dir, iteration, tree,
+            async_save=async_save, ready=ready, device=self.device)
         self.logger.info("checkpoint %s: %s (host copy %.3f s, replay %s)",
                          "save scheduled (async)" if async_save else "saved",
-                         path, copy_s, "fresh" if due else "reused")
+                         path, replay_s + ckpt_lib.last_host_copy_seconds(),
+                         "fresh" if due else "reused")
         if self.config.logging.save_best_only:
             for old in ckpt_lib.prune_checkpoints(
                     self.config.training.checkpoint_dir, keep_latest=1):
@@ -173,7 +177,8 @@ class AlphaZeroPipeline:
         ``replay_checkpoint_interval`` K > 1 it is copied fresh only on the
         first save, every K-th save (counted in saves, not iterations) and
         a save with ``fresh_replay`` (the run's last save and the interrupt
-        save); the other saves store the last fresh copy.
+        save); the other saves store the last fresh copy (a host-memory
+        copy of it, not a copy from the device).
 
         Returns once the host copy is taken; the write runs in the
         background with ``async_checkpointing``. With
@@ -238,6 +243,10 @@ class AlphaZeroPipeline:
         self.host_generator.set_state(tree["generators"]["host"])
         self.iteration = int(tree["iteration"])
         self.best_elo = float(tree["best_elo"])
+        # the replay schedule starts again from the restored state, so no
+        # later save stores a buffer copied before the restore
+        self._saves_done = 0
+        self._replay_host = None
         self.logger.info("resumed from %s at iteration %d", path,
                          self.iteration)
         return True

@@ -59,7 +59,7 @@ Phases (each raises on failure; the script exits 1 if any failed):
     checkpoint per iteration, pruning;
 12. ``default_selfplay``: ``configs/default_config.json`` as written (1024
     games, PUCT-400 with Dirichlet noise, the temperature schedule,
-    max_depth 64, the 5x128 bf16 net), cut to 2 move slots: 400 fresh
+    max_depth 64, the 5x128 bf16 net), cut to 3 move slots: 400 fresh
     visits on every live root, legal moves, 400 ``azr_round_backup``
     launches a slot, kernel launches per 60-level round (profiled);
 13. ``default_iteration_cli``: ``cli train`` for one iteration and
@@ -1099,13 +1099,17 @@ def check_round_kernel_puct(results: dict) -> None:
             exact_cpu=True, exact_card=links == 1, max_abs_err=max_err,
             **_time_round(_round_tensors(d, dev), d["slot0"]),
             launches_by_path={}, launches_other_shapes={})
+    # the PUCT-400 search's 6 stages unroll 4-24 levels: its launches run at
+    # P = 64-384, the row is timed at the last stage's P=384
+    results["round_backup_lb16"]["launches_shape"] = \
+        "B=1024 N=401 levels 4-24 (6 stages) L=16, P<=384"
 
 
 def default_selfplay(results: dict) -> None:
     """``configs/default_config.json`` as written: 1024 games, PUCT-400,
     c_puct 1, Dirichlet alpha 0.03 / epsilon 0.25, the temperature
     schedule, max_depth 64, 6 stages, leaf_batch 1, the 5x128 bf16 ResNet
-    with random weights from the config's seed; cut to 2 move slots (each
+    with random weights from the config's seed; cut to 3 move slots (each
     its own ``play_games`` call from the last one's states, so each is
     timed; the first also warms up). Every search must give each live root
     400 fresh visits, every round launch ``azr_round_backup`` once, every
@@ -1128,7 +1132,7 @@ def default_selfplay(results: dict) -> None:
     torch.manual_seed(cfg.seed)
     net = resnet.build_network(cfg.model).cuda()
     kw = selfplay.search_kwargs(mc, cfg.self_play, cfg.env_compat)
-    games, slots = cfg.self_play.num_parallel_games, 2
+    games, slots = cfg.self_play.num_parallel_games, 3
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     searches = []
     real = search.run_search
@@ -1193,7 +1197,7 @@ def default_selfplay(results: dict) -> None:
     per_slot = sum(slot_s[1:]) / (slots - 1)
     results["default_selfplay"] = dict(
         config="configs/default_config.json", games=games,
-        cut="max_moves 60 -> 2 move slots (2 play_games calls of 1 slot)",
+        cut="max_moves 60 -> 3 move slots (3 play_games calls of 1 slot)",
         slot_s=slot_s, s_per_move_slot=per_slot,
         moves_per_s=games / per_slot,
         round_backup_launches=launches, round_backup_per_slot=launches //

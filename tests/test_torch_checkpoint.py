@@ -236,6 +236,35 @@ def test_replay_checkpoint_interval(tmp_path, background):
     assert not torch.equal(live[0]["planes"], live[1]["planes"])
 
 
+@pytest.mark.parametrize("background", [False, True],
+                         ids=["loop", "background"])
+def test_restore_restarts_the_replay_schedule(tmp_path, background):
+    """A restore starts the save count again, as the JAX pipeline's does:
+    at interval 2, after three saves (the third fresh), a restore of save
+    1 makes the next save due, holding the restored buffer and not the
+    copy taken before the restore, and the save after it reuse that."""
+    pipe = _trained_pipeline(tmp_path, 4)
+    tr = pipe.config.training
+    tr.replay_checkpoint_interval = 2
+    tr.async_checkpointing = tr.background_checkpoint_fetch = background
+    pipe.config.logging.save_best_only = False
+    for it, fresh_replay in ((1, False), (2, False), (3, True)):
+        _add_rows(pipe, 10 + it)
+        pipe.iteration = it
+        pipe.save_checkpoint(fresh_replay=fresh_replay)
+    assert pipe.load_checkpoint(ckpt.checkpoint_path(tr.checkpoint_dir, 1))
+    restored = _buffer(pipe)
+    pipe.iteration = 4
+    pipe.save_checkpoint()  # due: the first save since the restore
+    _add_rows(pipe, 15)
+    pipe.iteration = 5
+    pipe.save_checkpoint()  # not due: the restored buffer again
+    pipe._join_bg_save()
+    _assert_buffers_equal(_saved_buffer(pipe, 4), restored)
+    _assert_buffers_equal(_saved_buffer(pipe, 5), restored)
+    assert _saved_buffer(pipe, 3)["size"] > restored["size"]
+
+
 def _fake_phases(pipe, monkeypatch, interrupt_at=None):
     """Replace the iteration's phases by an insert of fresh rows and fixed
     metrics; the SGD phase of iteration ``interrupt_at`` is interrupted."""
