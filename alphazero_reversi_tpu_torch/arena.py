@@ -337,6 +337,8 @@ class Arena:
         self.players: List[Player] = []
         # play_units' counts since the arena was made
         self.play_info: Dict[str, int] = {}
+        # unit indices the last run_tournament_sharded played here
+        self.units_played: List[int] = []
 
     def add_player(self, name: str, net: Optional[nn.Module] = None,
                    rating: Optional[float] = None) -> None:
@@ -437,6 +439,46 @@ class Arena:
                     for s in scores:
                         self.elo.update_ratings(first.name, second.name,
                                                 float(s))
+        return self.elo.get_leaderboard()
+
+    def run_tournament_sharded(self, seed: int, shard_index: int = 0,
+                               shard_count: int = 1,
+                               gather: Optional[Callable] = None,
+                               rounds: Optional[int] = None) -> List[Dict]:
+        """The merged tournament with its units sharded: this shard plays
+        the canonical units ``u`` with ``u % shard_count == shard_index``,
+        all in one ``play_units`` call (``units_played`` lists them);
+        ``gather(scores, owners)`` merges the ``[U, G]`` score rows over the
+        shards, each unit's row from its owner
+        (``parallel.multihost.gather_unit_scores``); then every shard
+        replays the per-game ELO updates in the canonical order, so all
+        leaderboards agree. Each unit's moves come from its own generator
+        (``_seed(seed, pair, colour)``), so a unit's scores do not depend
+        on the shard that plays it. One shard plays every unit: it is
+        ``run_tournament``, in the config's pairing mode, and gathers
+        nothing."""
+        rounds = rounds if rounds is not None else self.config.rounds
+        units = self._tournament_units(seed, rounds)
+        mine = [(u, unit) for u, unit in enumerate(units)
+                if u % shard_count == shard_index]
+        self.units_played = [u for u, _ in mine]
+        if shard_count == 1:
+            return self.run_tournament(seed, rounds)
+        if not units:
+            return self.elo.get_leaderboard()
+        scores = np.zeros((len(units), max(u[2] for u in units)),
+                          np.float32)
+        if mine:
+            played = self.play_units_merged([unit for _, unit in mine])
+            for (u, unit), s in zip(mine, played):
+                scores[u, :unit[2]] = s
+        if gather is not None:
+            scores = gather(scores, np.arange(len(units)) % shard_count)
+        per_pair: Dict[Tuple[int, int], List[float]] = {}
+        for (i, j, ng, _, _), row in zip(units, scores):
+            per_pair.setdefault((i, j), []).extend(float(x)
+                                                   for x in row[:ng])
+        self._replay_elo(per_pair, rounds)
         return self.elo.get_leaderboard()
 
     def _replay_elo(self, per_pair: Dict[Tuple[int, int], List[float]],

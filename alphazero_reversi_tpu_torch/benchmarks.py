@@ -12,6 +12,9 @@ arguments, defaults and row keys, plus ``headline``, the port of the root
   ceiling ``batch / (rounds x nn_forward)``;
 * ``profile``: a ``torch.profiler`` Chrome trace of one search;
 * ``solver`` / ``solver-batch``: the exact endgame solver (host CPU);
+* ``scaling``: env steps/s and self-play moves/s at constant work per rank
+  over 1, 2, 4 and 8 ranks (one process per card, NCCL; gloo processes
+  with ``--device cpu``), with the weak-scaling efficiency;
 * ``headline``: one JSON line of ``bench.py``'s points.
 
 Everything times the main path's own code (``mcts.search``,
@@ -20,9 +23,8 @@ settings the pipeline uses; there is no fast path of its own. Times are
 host seconds between ``torch.cuda.synchronize()`` calls, best of N after
 one warm-up call; each call draws from its own ``torch.Generator``. The
 port runs eagerly, one launch per tensor op, so every time includes the
-host's launch cost, as the pipeline pays it. ``scaling`` (multi-device)
-is not ported yet. Every row printed carries the card's name and power
-limit (``nvidia-smi``), or ``"cpu"``.
+host's launch cost, as the pipeline pays it. Every row printed carries the
+card's name and power limit (``nvidia-smi``), or ``"cpu"``.
 
     python -m alphazero_reversi_tpu_torch.benchmarks headline
     python -m alphazero_reversi_tpu_torch.benchmarks mcts --batch-sizes 1 \\
@@ -54,6 +56,7 @@ from .mcts import gumbel as gumbel_lib
 from .mcts import search as search_lib
 from .mcts.search import resolve_device
 from .models import resnet
+from .parallel import mesh as mesh_lib
 
 FLAGSHIP_CONFIG = Path(__file__).resolve().parent.parent / "configs" \
     / "flagship_run.json"
@@ -638,6 +641,155 @@ def headline(leaf_batch: int = 16, skip_iteration: bool = False,
 
 
 # ---------------------------------------------------------------------------
+# multi-device scaling
+# ---------------------------------------------------------------------------
+
+SCALING_RANK_TIMEOUT_S = 900  # a rank that takes longer fails the bench
+
+
+def _slowest_rank(seconds: float) -> float:
+    """The largest of the ranks' ``seconds`` (a gather)."""
+    from .parallel import multihost as mh
+
+    return float(mh.fetch_replicated(torch.tensor([seconds],
+                                                  dtype=torch.float64))
+                 .max())
+
+
+def _scaling_measure(mesh, env_batch_per_device: int, steps: int,
+                     sp_games_per_device: int, sp_sims: int, repeats: int,
+                     skip_selfplay: bool) -> Dict[str, Any]:
+    """One rank's part of ``bench_scaling`` at ``mesh.world`` ranks: each
+    timed call starts at a barrier and lasts until the slowest rank ends;
+    the best of ``repeats`` after one warm-up."""
+    from .parallel import dp
+    from .parallel import multihost as mh
+
+    dev = mesh.device
+
+    def best_of(fn: Callable[[int], Any]) -> float:
+        best = math.inf
+        for i in range(repeats + 1):  # call 0 warms up
+            mh.barrier("scaling")
+            _sync(dev)
+            t0 = time.perf_counter()
+            fn(i)
+            _sync(dev)
+            dt = _slowest_rank(time.perf_counter() - t0)
+            if i:
+                best = min(best, dt)
+        return best
+
+    fresh = env.initial_state((env_batch_per_device,), device=dev)
+    # each rank steps its own boards: its own draws
+    env_s = best_of(lambda i: env_steps(
+        fresh, fresh, steps, generator=torch.Generator(device=dev)
+        .manual_seed(1000 * i + mesh.rank)))
+    d = mesh.world
+    out = {"env": {"devices": d, "batch": env_batch_per_device * d,
+                   "env_steps_per_s": env_batch_per_device * d * steps
+                   / env_s}}
+    if not skip_selfplay:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            net = resnet.build_network(ModelConfig(
+                num_res_blocks=1, num_filters=16,
+                value_head_hidden_size=16)).to(dev)
+        games = sp_games_per_device * d
+        # one self-play batch of ``games``, each rank its block
+        sp_s = best_of(lambda i: dp.sharded_play_games(
+            net, num_games=games, seed=i, mesh=mesh,
+            num_simulations=sp_sims, c_puct=1.0, dirichlet_alpha=0.3,
+            dirichlet_epsilon=0.25, temp_threshold=15, temp_init=1.0,
+            temp_final=0.1, max_moves=60))
+        out["selfplay"] = {"devices": d, "games": games,
+                           "moves_per_s": games * 60 / sp_s}
+    return out
+
+
+def _scaling_rank(argv: List[str]) -> None:
+    """One rank of ``bench_scaling``, a process of its own: ``argv`` is
+    ``rank world port device_type kwargs_json out_path``. Joins the process
+    group (NCCL on ``cuda:rank``; gloo with device type ``cpu``, one thread
+    a rank), measures, and writes ``{"result": ...}`` to ``out_path``."""
+    rank, world, port = (int(x) for x in argv[:3])
+    device = "cpu" if argv[3] == "cpu" else None
+    if device == "cpu":  # a core per rank
+        torch.set_num_threads(1)
+    mesh_lib.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                    device=device)
+    try:
+        result = _scaling_measure(mesh_lib.make_mesh(device=device),
+                                  **json.loads(argv[4]))
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(argv[5]).write_text(json.dumps({"result": result}))
+
+
+def _run_ranks(world: int, device_type: str, kwargs: Dict[str, Any]
+               ) -> Dict[str, Any]:
+    """``world`` ranks of ``_scaling_rank`` (``mesh.spawn_ranks``), each a
+    new interpreter, so it imports nothing of the caller's main script;
+    returns rank 0's result. A rank that fails, or outlasts
+    ``SCALING_RANK_TIMEOUT_S``, stops every rank and raises."""
+    root = str(Path(__file__).resolve().parent.parent)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [x for x in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if x])
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        mesh_lib.spawn_ranks(
+            lambda r, port: [
+                sys.executable, "-c",
+                "import sys; from alphazero_reversi_tpu_torch.benchmarks "
+                "import _scaling_rank; _scaling_rank(sys.argv[1:])",
+                str(r), str(world), str(port), device_type,
+                json.dumps(kwargs), outs[r]],
+            world, SCALING_RANK_TIMEOUT_S, env=env,
+            what=f"scaling at {world} rank(s)")
+        return json.loads(Path(outs[0]).read_text())["result"]
+
+
+def bench_scaling(device_counts: Optional[List[int]] = None,
+                  env_batch_per_device: int = 4096, env_steps: int = 256,
+                  sp_games_per_device: int = 32, sp_sims: int = 16,
+                  repeats: int = 3, skip_selfplay: bool = False,
+                  device=None) -> Dict[str, Any]:
+    """Weak scaling over ranks (the JAX ``bench_scaling``): for each count
+    d of ``device_counts`` (default 1, 2, 4, 8) up to the devices there are
+    (the cards; the host's cores with ``device="cpu"``), d rank processes,
+    one per card, step ``env_batch_per_device`` boards each and play one
+    self-play batch of ``sp_games_per_device * d`` games (PUCT at
+    ``sp_sims`` simulations on a 1x16 net, 60 move slots), each rank its
+    block. Rates count all ranks' work over the slowest rank's time;
+    ``efficiency_pct`` = rate_d / (d x rate_1) x 100 against the smallest
+    count run."""
+    dev = resolve_device(device)  # raises without the card
+    n_avail = (torch.cuda.device_count() if dev.type == "cuda"
+               else os.cpu_count() or 1)
+    counts = [d for d in (device_counts or [1, 2, 4, 8]) if d <= n_avail]
+    kwargs = dict(env_batch_per_device=env_batch_per_device,
+                  steps=env_steps,
+                  sp_games_per_device=sp_games_per_device, sp_sims=sp_sims,
+                  repeats=repeats, skip_selfplay=skip_selfplay)
+    out: Dict[str, Any] = {"devices_available": n_avail, "env": [],
+                           "selfplay": []}
+    for d in counts:
+        res = _run_ranks(d, dev.type, kwargs)
+        out["env"].append(res["env"])
+        if "selfplay" in res:
+            out["selfplay"].append(res["selfplay"])
+    for key, rate in (("env", "env_steps_per_s"),
+                      ("selfplay", "moves_per_s")):
+        rows = out[key]
+        for row in rows:
+            ideal = rows[0][rate] / rows[0]["devices"] * row["devices"]
+            row["efficiency_pct"] = round(100.0 * row[rate] / ideal, 1)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
 
@@ -721,6 +873,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     sb.add_argument("--threads", type=int, nargs="+", default=None)
     sb.add_argument("--compat", action="store_true")
 
+    sc = command("scaling", help="weak scaling over ranks, one per card")
+    sc.add_argument("--devices", type=int, nargs="+", default=None)
+    sc.add_argument("--env-batch-per-device", type=int, default=4096)
+    sc.add_argument("--games-per-device", type=int, default=32)
+    sc.add_argument("--sims", type=int, default=16)
+    sc.add_argument("--skip-selfplay", action="store_true")
+
     h = command("headline", help="the root bench.py's points, one line")
     h.add_argument("--leaf-batch", type=int, default=16,
                    help="leaf_batch of the PUCT-400 point")
@@ -765,6 +924,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         for row in bench_solver_batch(args.positions, args.empties,
                                       args.threads, compat=args.compat):
             emit(row)
+    elif args.command == "scaling":
+        res = bench_scaling(args.devices, args.env_batch_per_device,
+                            sp_games_per_device=args.games_per_device,
+                            sp_sims=args.sims,
+                            skip_selfplay=args.skip_selfplay, device=dev)
+        for row in res["env"] + res["selfplay"]:
+            row["device"] = label
+        emit(res)
     elif args.command == "headline":
         emit(headline(args.leaf_batch, args.skip_iteration, device=dev))
     return 0

@@ -39,6 +39,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from . import hostfetch
+
 _STEP_RE = re.compile(r"^it_(\d+)$")
 STATE_FILE = "state.pt"
 BEST_DIR = "best_model"
@@ -48,18 +50,6 @@ _LOCK = threading.Lock()  # guards _WRITER and _ERROR
 _WRITER: Optional[threading.Thread] = None
 _ERROR: Optional[BaseException] = None
 _LAST_COPY = threading.local()  # each thread's last host copy, seconds
-
-
-def _map_tensors(fn, tree: Any) -> Any:
-    """``tree`` with ``fn`` applied to every tensor in its dicts, lists and
-    tuples; other leaves are kept as they are."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map_tensors(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(fn, v) for v in tree)
-    return tree
 
 
 def to_host(tree: Any, ready: Optional["torch.cuda.Event"] = None,
@@ -73,11 +63,11 @@ def to_host(tree: Any, ready: Optional["torch.cuda.Event"] = None,
         return t.detach().to("cpu", copy=True)
 
     if ready is None:
-        return _map_tensors(copy, tree)
+        return hostfetch.map_tensors(copy, tree)
     stream = torch.cuda.Stream(device=device)
     with torch.cuda.stream(stream):
         stream.wait_event(ready)
-        return _map_tensors(copy, tree)
+        return hostfetch.map_tensors(copy, tree)
 
 
 def snapshot(tree: Any, device: torch.device
@@ -87,7 +77,7 @@ def snapshot(tree: Any, device: torch.device
     Later in-place writes to ``tree`` do not reach the clone, so another
     thread may copy it to the host (``to_host(clone, event, device)``)
     while the caller goes on."""
-    clone = _map_tensors(lambda t: t.detach().clone(), tree)
+    clone = hostfetch.map_tensors(lambda t: t.detach().clone(), tree)
     if device.type != "cuda":
         return clone, None
     event = torch.cuda.Event()
@@ -142,10 +132,12 @@ def _write_atomic(path: str, filename: str, tree: Any) -> None:
 
 def _save(path: str, filename: str, tree: Any, async_save: bool,
           ready: Optional["torch.cuda.Event"] = None,
-          device: Optional[torch.device] = None) -> str:
+          device: Optional[torch.device] = None,
+          fetch_timeout_s: Optional[float] = None) -> str:
     global _WRITER
     t0 = time.perf_counter()
-    host_tree = to_host(tree, ready, device)
+    host_tree = hostfetch.guarded(lambda: to_host(tree, ready, device),
+                                  fetch_timeout_s, what="checkpoint copy")
     _LAST_COPY.seconds = time.perf_counter() - t0
     wait_for_saves()  # at most one write in flight
     if not async_save:
@@ -197,13 +189,15 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 def save_checkpoint(ckpt_dir: str, iteration: int, tree: Dict[str, Any],
                     async_save: bool = False,
                     ready: Optional["torch.cuda.Event"] = None,
-                    device: Optional[torch.device] = None) -> str:
+                    device: Optional[torch.device] = None,
+                    fetch_timeout_s: Optional[float] = None) -> str:
     """Write ``tree`` as ``<ckpt_dir>/it_<iteration>`` (module docstring:
     host copy first, then an atomic write, in the background with
     ``async_save``). ``ready`` and ``device``: a ``snapshot``'s event and
-    device, as ``to_host`` takes them. Returns the path."""
+    device, as ``to_host`` takes them. ``fetch_timeout_s`` > 0 guards the
+    host copy (``hostfetch.guarded``). Returns the path."""
     return _save(checkpoint_path(ckpt_dir, iteration), STATE_FILE, tree,
-                 async_save, ready, device)
+                 async_save, ready, device, fetch_timeout_s)
 
 
 def prune_checkpoints(ckpt_dir: str, keep_latest: int = 1) -> List[str]:
@@ -227,10 +221,12 @@ def restore_checkpoint(path: str, map_location=None) -> Dict[str, Any]:
 
 
 def save_best(ckpt_dir: str, weights: Dict[str, torch.Tensor],
-              async_save: bool = False) -> str:
+              async_save: bool = False,
+              fetch_timeout_s: Optional[float] = None) -> str:
     """Weights-only best model, ``<ckpt_dir>/best_model``."""
     return _save(os.path.join(os.path.abspath(ckpt_dir), BEST_DIR),
-                 BEST_FILE, weights, async_save)
+                 BEST_FILE, weights, async_save,
+                 fetch_timeout_s=fetch_timeout_s)
 
 
 def restore_best(ckpt_dir: str, map_location=None

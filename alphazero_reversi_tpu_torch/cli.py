@@ -16,6 +16,16 @@ the card unless ``--device`` says otherwise::
     python -m alphazero_reversi_tpu_torch.cli analyze -d checkpoints d3 c5
     python -m alphazero_reversi_tpu_torch.cli play -d checkpoints --color white
     python -m alphazero_reversi_tpu_torch.cli import-checkpoint best_model.pth -d checkpoints
+
+``train`` and ``continue`` run data-parallel with ``--coordinator
+host:port --num-processes d --process-id r``: start one process per rank
+(rank r on ``cuda:(r % device_count)``, or all on the host with
+``--device cpu``), each with its own ``--process-id`` and the same other
+arguments; rank 0 listens at the coordinator address and writes every
+output::
+
+    python -m alphazero_reversi_tpu_torch.cli --device cpu train -c cfg.json \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import sys
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from . import checkpoint as ckpt_lib
 from .arena import Arena
@@ -36,6 +47,8 @@ from .env.game import Board
 from .mcts import search as search_lib
 from .mcts.search import resolve_device
 from .models import resnet
+from .parallel import mesh as mesh_lib
+from .parallel import multihost as mh
 from .pipeline import AlphaZeroPipeline
 
 
@@ -43,17 +56,21 @@ def _load_config(path: Optional[str]) -> Config:
     return Config.load(path) if path else get_default_config()
 
 
-def _make_run_dirs(config: Config, output_dir: str) -> str:
-    """Timestamped run dir with every output path rewritten into it."""
-    ts = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+def _make_run_dirs(config: Config, output_dir: str,
+                   create: bool = True, ts: Optional[str] = None) -> str:
+    """Timestamped run dir with every output path rewritten into it;
+    ``create=False`` rewrites the paths only (a rank other than 0 of a
+    data-parallel run, given rank 0's timestamp ``ts``)."""
+    ts = ts or datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
     run_dir = os.path.join(output_dir, f"run_{ts}")
-    os.makedirs(run_dir, exist_ok=True)
     config.training.checkpoint_dir = os.path.join(run_dir, "checkpoints")
     config.logging.log_dir = os.path.join(run_dir, "logs")
     config.self_play.save_dir = os.path.join(run_dir, "self_play_data")
     config.tournament.output_dir = os.path.join(run_dir,
                                                 "tournament_results")
-    config.save(os.path.join(run_dir, "config.json"))
+    if create:
+        os.makedirs(run_dir, exist_ok=True)
+        config.save(os.path.join(run_dir, "config.json"))
     return run_dir
 
 
@@ -65,18 +82,29 @@ def cmd_create_config(args) -> int:
 
 
 def cmd_train(args) -> int:
-    config = _load_config(args.config)
-    if args.iterations is not None:
-        config.training.num_epochs = args.iterations
-    if args.run_dir:
-        _make_run_dirs(config, args.run_dir)
-    run_name = args.run_name or (
-        f"{config.project_name}_"
-        f"{datetime.datetime.now().strftime('%Y%m%d_%H%M%S')}")
-    pipe = AlphaZeroPipeline(config, run_name=run_name, device=args.device)
-    if args.resume:
-        pipe.load_checkpoint(args.checkpoint)
-    pipe.train()
+    """Train (or resume), data-parallel when the distributed arguments are
+    given: the process group is made first and destroyed at the end."""
+    joined = mesh_lib.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id, args.device)
+    try:
+        config = _load_config(args.config)
+        if args.iterations is not None:
+            config.training.num_epochs = args.iterations
+        # rank 0's clock names the run, for every rank
+        ts = mh.broadcast_from_primary(
+            datetime.datetime.now().strftime("%Y%m%d_%H%M%S"))
+        if args.run_dir:
+            _make_run_dirs(config, args.run_dir, create=mh.is_primary(),
+                           ts=ts)
+        run_name = args.run_name or f"{config.project_name}_{ts}"
+        pipe = AlphaZeroPipeline(config, run_name=run_name,
+                                 device=args.device)
+        if args.resume:
+            pipe.load_checkpoint(args.checkpoint)
+        pipe.train()
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 
@@ -351,6 +379,13 @@ def build_parser() -> argparse.ArgumentParser:
                             "<project_name>_<timestamp>)")
         q.add_argument("--checkpoint", default=None,
                        help="explicit checkpoint path to resume from")
+        q.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                       help="data-parallel run: rank 0's address, where "
+                            "the ranks meet (torch.distributed)")
+        q.add_argument("--num-processes", type=int, default=None,
+                       help="data-parallel run: the number of ranks")
+        q.add_argument("--process-id", type=int, default=None,
+                       help="data-parallel run: this process's rank")
 
     t = sub.add_parser("train", help="run the training pipeline")
     run_args(t)

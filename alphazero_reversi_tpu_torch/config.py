@@ -3,9 +3,10 @@
 The port's own copy of ``alphazero_reversi_tpu/config.py``: the same
 sections, fields, defaults and legacy-key migrations, so every JSON under
 ``configs/`` loads to an identical ``asdict`` in both packages. Field
-meanings are documented at the JAX counterpart; fields that only the JAX
-package consumes (mesh layout, checkpoint fetch, relabel budget, ...) are
-kept so that configs round-trip unchanged.
+meanings are documented at the JAX counterpart. The port reads ``mesh``
+(``parallel.mesh.make_mesh``: ``data_axis`` -1 or the number of ranks,
+``model_axis`` 1), ``training.shard_replay_buffer`` and
+``training.fetch_timeout_s`` as the JAX pipeline does.
 """
 from __future__ import annotations
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,18 +93,26 @@ def loss_fn(net: resnet.AlphaZeroNet, planes: torch.Tensor,
             policy_loss: str, policy_weight: float, value_weight: float,
             generator: Optional[torch.Generator] = None,
             augment_symmetries: bool = False,
-            syms: Optional[torch.Tensor] = None
+            syms: Optional[torch.Tensor] = None,
+            rows: Optional[Tuple[int, int]] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Combined loss -> (total, aux). The forward pass is ``apply_train``,
     so it updates the net's BatchNorm running averages. With
     ``augment_symmetries`` the batch first takes a random dihedral
     transform (``syms`` ``[B]`` replaces the draw); the symmetry draw and
-    then the dropout mask come from ``generator``."""
+    then the dropout mask come from ``generator``. ``rows`` ``(first,
+    total)``: the batch is rows ``[first, first + B)`` of a global batch of
+    ``total`` (a data-parallel rank's block), and both draws are made at
+    the global batch's shape, these rows kept."""
     if augment_symmetries:
+        if syms is None and rows is not None:
+            first, total = rows
+            syms = symmetry.random_syms(generator, total, planes.device)[
+                first:first + planes.shape[0]]
         planes, policy_tgt = symmetry.augment(generator, planes, policy_tgt,
                                               syms)
         # value targets are symmetry-invariant
-    (logits, value), _ = resnet.apply_train(net, planes, generator)
+    (logits, value), _ = resnet.apply_train(net, planes, generator, rows)
     logp = F.log_softmax(logits, -1)
     if policy_loss == "soft":
         p_loss = -(policy_tgt * logp).sum(-1).mean()
@@ -135,21 +143,32 @@ def train_step(state: TrainState, planes: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                syms: Optional[torch.Tensor] = None,
                policy_loss: str = "soft", policy_weight: float = 1.0,
-               value_weight: float = 1.0, augment_symmetries: bool = False
+               value_weight: float = 1.0, augment_symmetries: bool = False,
+               rows: Optional[Tuple[int, int]] = None,
+               reduce: Optional[Callable] = None
                ) -> Dict[str, torch.Tensor]:
     """One SGD step on ``state`` in place. Returns the aux metrics
     (``loss``, ``policy_loss``, ``value_loss``, ``grad_norm``) as device
-    scalars."""
+    scalars.
+
+    ``rows`` as in ``loss_fn``. ``reduce(grads, net, aux) -> aux``, when
+    given, runs between the backward pass and the clip: the data-parallel
+    step (``parallel.dp``) averages the gradients, the BatchNorm running
+    averages and the aux metrics over the ranks there, so the clip, the
+    reported ``grad_norm`` and AdamW see the averaged gradient."""
     params = list(state.net.parameters())
     state.optimizer.zero_grad(set_to_none=True)
     total, aux = loss_fn(state.net, planes, policy_tgt, value_tgt,
                          policy_loss=policy_loss,
                          policy_weight=policy_weight,
                          value_weight=value_weight, generator=generator,
-                         augment_symmetries=augment_symmetries, syms=syms)
+                         augment_symmetries=augment_symmetries, syms=syms,
+                         rows=rows)
     total.backward()
-    aux["grad_norm"] = _clip_by_global_norm([p.grad for p in params],
-                                            state.max_grad_norm)
+    grads = [p.grad for p in params]
+    if reduce is not None:
+        aux = reduce(grads, state.net, aux)
+    aux["grad_norm"] = _clip_by_global_norm(grads, state.max_grad_norm)
     state.optimizer.step()
     state.step += 1
     return aux
@@ -159,23 +178,33 @@ def train_steps(state: TrainState, buffer: replay_lib.ReplayBuffer,
                 generator: Optional[torch.Generator], *, num_steps: int,
                 batch_size: int, policy_loss: str = "soft",
                 policy_weight: float = 1.0, value_weight: float = 1.0,
-                augment_symmetries: bool = False
+                augment_symmetries: bool = False,
+                block: Optional[Tuple[int, int]] = None,
+                reduce: Optional[Callable] = None
                 ) -> Dict[str, torch.Tensor]:
     """``num_steps`` SGD steps, each on a fresh batch sampled from
     ``buffer`` on its device. Every draw (sample indices, then symmetries,
     then dropout) comes from ``generator`` in that order, so this equals
     ``num_steps`` calls of ``replay.sample`` + ``train_step`` on one
     generator. Returns the step-mean aux metrics as device scalars; nothing
-    is read back to the host."""
+    is read back to the host.
+
+    ``block`` ``(first, per)``: every step trains on rows ``[first, first
+    + per)`` of each ``batch_size`` batch, every draw made at the whole
+    batch's shape (a data-parallel rank's block, ``parallel.dp``; default
+    the whole batch); ``reduce`` as in ``train_step``."""
+    first, per = block or (0, batch_size)
     auxs = []
     for _ in range(num_steps):
-        planes, policy_tgt, value_tgt = replay_lib.sample(buffer, generator,
-                                                          batch_size)
+        idx = replay_lib.sample_indices(buffer, generator, batch_size)
+        planes, policy_tgt, value_tgt = replay_lib.gather(
+            buffer, idx[first:first + per])
         auxs.append(train_step(
             state, planes, policy_tgt, value_tgt, generator=generator,
             policy_loss=policy_loss, policy_weight=policy_weight,
             value_weight=value_weight,
-            augment_symmetries=augment_symmetries))
+            augment_symmetries=augment_symmetries,
+            rows=(first, batch_size), reduce=reduce))
     return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
 
@@ -202,11 +231,25 @@ class Learner:
         """Apply the MultiStepLR schedule for this outer iteration."""
         set_learning_rate(self.state, lr_at_iteration(self.cfg, iteration))
 
+    def _block(self, batch_size: int) -> Tuple[int, int]:
+        """``(first, per)``: the rows of a ``batch_size`` batch this learner
+        trains on (all of them; a data-parallel rank's block in
+        ``parallel.dp.DPTrainer``)."""
+        return 0, batch_size
+
+    # the train_step reduce hook (none: one device)
+    _reduce: Optional[Callable] = None
+
     def step(self, planes, policy_tgt, value_tgt,
              generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        return train_step(self.state, planes, policy_tgt, value_tgt,
-                          generator=generator, **self._loss_kwargs())
+        """One SGD step on a batch (this learner's block of its rows)."""
+        first, per = self._block(planes.shape[0])
+        take = lambda x: x[first:first + per]
+        return train_step(self.state, take(planes), take(policy_tgt),
+                          take(value_tgt), generator=generator,
+                          rows=(first, planes.shape[0]), reduce=self._reduce,
+                          **self._loss_kwargs())
 
     def steps(self, buffer: replay_lib.ReplayBuffer,
               generator: Optional[torch.Generator], num_steps: int,
@@ -215,6 +258,7 @@ class Learner:
         (``train_steps``)."""
         return train_steps(self.state, buffer, generator,
                            num_steps=num_steps, batch_size=batch_size,
+                           block=self._block(batch_size), reduce=self._reduce,
                            **self._loss_kwargs())
 
     def state_dict(self) -> Dict[str, torch.Tensor]:

@@ -2,8 +2,7 @@
 
 The port's own copy of ``alphazero_reversi_tpu/logger.py``: stdlib logging
 to the console and ``<log_dir>/<run>/training.log``, a config snapshot per
-run, and the same ``Logger`` surface less ``file_output`` (the switch for
-non-primary processes, which comes with multi-process training). Every ``log_metrics`` call also
+run, and the same ``Logger`` surface. Every ``log_metrics`` call also
 appends one JSON object ``{"step": ..., <name>: <value>, ...}`` to
 ``<run>/metrics.jsonl``, so a run's metrics are readable without
 TensorBoard. With ``use_tensorboard`` the scalars, histograms
@@ -25,12 +24,18 @@ class Logger:
 
     def __init__(self, log_dir: str, run_name: str = "run",
                  level: str = "INFO", use_tensorboard: bool = True,
-                 verbose: bool = True):
+                 verbose: bool = True, file_output: bool = True):
+        """``file_output=False`` makes a logger that writes nothing: no run
+        dir, ``training.log``, ``metrics.jsonl``, TensorBoard or snapshots;
+        the console only, if ``verbose``. The ranks of a data-parallel run
+        other than rank 0 log so, and rank 0 owns the files."""
         self.run_dir = os.path.join(os.path.abspath(log_dir), run_name)
         self.metrics_path = os.path.join(self.run_dir, "metrics.jsonl")
-        os.makedirs(self.run_dir, exist_ok=True)
+        self._file_output = file_output
+        if file_output:
+            os.makedirs(self.run_dir, exist_ok=True)
         self._tb = None
-        self._use_tb = use_tensorboard
+        self._use_tb = use_tensorboard and file_output
 
         self.logger = logging.getLogger(f"alphazero_torch.{run_name}")
         self.logger.setLevel(getattr(logging, level.upper(), logging.INFO))
@@ -38,13 +43,17 @@ class Logger:
         self.logger.propagate = False
         fmt = logging.Formatter(
             "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-        fh = logging.FileHandler(os.path.join(self.run_dir, "training.log"))
-        fh.setFormatter(fmt)
-        self.logger.addHandler(fh)
+        if file_output:
+            fh = logging.FileHandler(os.path.join(self.run_dir,
+                                                  "training.log"))
+            fh.setFormatter(fmt)
+            self.logger.addHandler(fh)
         if verbose:
             sh = logging.StreamHandler()
             sh.setFormatter(fmt)
             self.logger.addHandler(sh)
+        if not self.logger.handlers:  # silent, not logging's last resort
+            self.logger.addHandler(logging.NullHandler())
 
     # -- plain logging ----------------------------------------------------
     def info(self, msg: str, *args) -> None:
@@ -74,8 +83,9 @@ class Logger:
         """Scalars to ``metrics.jsonl`` and TensorBoard, plus one info
         line."""
         items = {k: float(v) for k, v in metrics.items()}
-        with open(self.metrics_path, "a") as f:
-            f.write(json.dumps({"step": step, **items}) + "\n")
+        if self._file_output:
+            with open(self.metrics_path, "a") as f:
+                f.write(json.dumps({"step": step, **items}) + "\n")
         if self.writer is not None:
             for k, v in items.items():
                 self.writer.add_scalar(k, v, step)
@@ -99,6 +109,8 @@ class Logger:
     def log_model_graph(self, graph_text: str) -> None:
         """The model's structure (the module's ``repr``) to
         ``model_graph.txt`` in the run dir and to TensorBoard as text."""
+        if not self._file_output:
+            return
         with open(os.path.join(self.run_dir, "model_graph.txt"), "w") as f:
             f.write(graph_text)
         self.log_text("model/graph", f"```\n{graph_text}\n```")
@@ -114,6 +126,8 @@ class Logger:
 
     def log_config(self, config_dict: Dict[str, Any]) -> None:
         """Config snapshot into the run dir."""
+        if not self._file_output:
+            return
         with open(os.path.join(self.run_dir, "config.json"), "w") as f:
             json.dump(config_dict, f, indent=2)
 

@@ -174,6 +174,14 @@ def _sim_round(net, trees: tree_lib.Tree, r: int, levels: int, L: int,
 
 
 @torch.no_grad()
+def draw_gumbel(batch: int, generator: Optional[torch.Generator],
+                device) -> torch.Tensor:
+    """The search's root draw: standard Gumbel ``[batch, A]`` float32 from
+    ``generator``."""
+    return torch.empty(batch, A, device=device).exponential_(
+        generator=generator).log_().neg_()
+
+
 def run_gumbel_search(net, root_states: env.EnvState, *,
                       num_simulations: int, max_considered_actions: int = 16,
                       c_visit: float = 50.0, c_scale: float = 0.1,
@@ -213,8 +221,7 @@ def run_gumbel_search(net, root_states: env.EnvState, *,
 
     prior, root_raw, legal = _evaluate(net, root_states, compat)
     if gumbel is None:
-        gumbel = torch.empty(batch, A, device=dev).exponential_(
-            generator=generator).log_().neg_()
+        gumbel = draw_gumbel(batch, generator, dev)
     g = torch.where(legal, gumbel_scale * gumbel.float(), _NEG)
 
     trees = tree_lib.init_root(

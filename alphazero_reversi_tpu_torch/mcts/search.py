@@ -393,11 +393,17 @@ def sample_actions(probs: torch.Tensor,
     logits = torch.where(probs > 0, probs.clamp_min(1e-12).log(),
                          -torch.inf)
     if noise is None:
-        u = torch.rand(probs.shape, generator=generator,
-                       device=probs.device)
-        noise = -torch.log(-torch.log(
-            u.clamp_min(torch.finfo(torch.float32).tiny)))
+        noise = draw_sample_noise(probs.shape, generator, probs.device)
     return (logits + noise).argmax(-1).to(torch.int32)
+
+
+def draw_sample_noise(shape, generator: Optional[torch.Generator],
+                      device) -> torch.Tensor:
+    """``sample_actions``' draw: standard Gumbel noise of ``shape`` as
+    ``-log(-log(u))``, ``u`` uniform in [tiny, 1) from ``generator``."""
+    u = torch.rand(tuple(shape), generator=generator, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
 
 
 # ------------------------------------------------------ host play surface

@@ -124,25 +124,34 @@ class AlphaZeroNet(nn.Module):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
 
     def _dropout(self, x: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator],
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         rate = self.cfg.dropout
         if not self.training or rate <= 0.0:
             return x
         if rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - rate
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        if rows is None:
+            mask = torch.rand(x.shape, generator=generator, device=x.device)
+        else:  # this batch's rows of a draw at the global batch's shape
+            first, total = rows
+            mask = torch.rand((total, *x.shape[1:]), generator=generator,
+                              device=x.device)[first:first + x.shape[0]]
+        return torch.where(mask < keep, x / keep, torch.zeros_like(x))
 
     def forward(self, planes: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``rows`` ``(first, total)``: ``planes`` are rows ``[first, first
+        + B)`` of a batch of ``total``; the dropout mask is drawn at the
+        whole batch's shape and these rows kept."""
         x = planes.permute(0, 3, 1, 2).to(self.dtype)
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         for block in self.res:
             x = block(x)
-        x = self._dropout(x, generator)
+        x = self._dropout(x, generator, rows)
         p = F.relu(self.policy_bn(self.policy_conv(x)))
         logits = self.policy_fc(self._flatten_nhwc(p))
         v = F.relu(self.value_bn(self.value_conv(x)))
@@ -168,21 +177,28 @@ def apply_eval(net: AlphaZeroNet, planes: torch.Tensor
 
 
 def apply_train(net: AlphaZeroNet, planes: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
                            Dict[str, torch.Tensor]]:
     """Training forward pass (the net in train mode): BatchNorm on batch
-    statistics, dropout drawn from ``generator``. Returns ``((logits,
-    value), batch_stats)``: ``batch_stats`` maps each BatchNorm buffer name
+    statistics, dropout drawn from ``generator`` (``rows`` as in
+    ``AlphaZeroNet.forward``). Returns ``((logits, value), batch_stats)``:
+    ``batch_stats`` maps each BatchNorm buffer name
     (``<layer>.running_mean`` / ``.running_var``) to the net's running
     average, updated in place by this pass (empty for a BN-free net)."""
     if not net.training:
         raise ValueError("apply_train needs the net in train mode "
                          "(net.train())")
-    out = net(planes, generator=generator)
-    stats = {name: buf for name, buf in net.named_buffers()
-             if name.endswith((".running_mean", ".running_var"))}
-    return out, stats
+    return net(planes, generator=generator, rows=rows), batch_stats(net)
+
+
+def batch_stats(net: AlphaZeroNet) -> Dict[str, torch.Tensor]:
+    """Each BatchNorm buffer name (``<layer>.running_mean`` /
+    ``.running_var``) -> the net's running average (empty for a BN-free
+    net)."""
+    return {name: buf for name, buf in net.named_buffers()
+            if name.endswith((".running_mean", ".running_var"))}
 
 
 def masked_policy(logits: torch.Tensor, legal_mask: torch.Tensor

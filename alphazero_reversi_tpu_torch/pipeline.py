@@ -1,9 +1,7 @@
 """Training orchestration: self-play -> relabel -> replay -> SGD -> gate ->
 checkpoint, one outer iteration at a time.
 
-Port of ``alphazero_reversi_tpu/pipeline.py`` for one device (the mesh,
-multi-process and sharded-replay paths are ROADMAP.md queue 1 item 12).
-Per iteration:
+Port of ``alphazero_reversi_tpu/pipeline.py``. Per iteration:
 
 1. **Self-play**: the learner's weights go into the self-play net, which
    plays ``ceil(num_games / num_parallel_games)`` batches; each is
@@ -33,6 +31,38 @@ continues bit for bit as the uninterrupted run would have.
 
 Metric names are the JAX package's, plus ``checkpoint/seconds`` (host time
 the loop waits on the save).
+
+**Data parallelism.** The pipeline runs as one rank of ``d``, one per
+card, as the JAX pipeline runs over its mesh's data axis: ``d`` is the
+world of the process group (``parallel.mesh.initialize_distributed``;
+``cli train --coordinator``), and 1 without one, where every collective
+below is a no-op:
+
+* ``num_parallel_games`` and ``batch_size`` are rounded up to multiples of
+  ``d`` (with a warning); every rank builds the same net from the seed and
+  draws the same seeds, so every host decision agrees;
+* each rank plays and relabels its block of each self-play batch
+  (``parallel.dp.sharded_play_games``, ``multihost.relabel_sharded``);
+* the replay buffer is replicated (each batch gathered back into global
+  game order, ``multihost.gather_trajectory``, and inserted alike on every
+  rank, so the ring is the one-process ring) or, with
+  ``training.shard_replay_buffer``, split over the ranks
+  (``parallel.replay_sharded``, each rank inserting its own games; with
+  more than one rank, as in JAX);
+* SGD is ``parallel.dp.DPTrainer``, its step count taken from the global
+  count of new positions;
+* each rank plays its share of the gate's units
+  (``Arena.run_tournament_sharded``), and rank 0's promotion decision is
+  broadcast;
+* rank 0 alone writes checkpoints, best weights, trajectories and logs
+  (the other ranks' logger writes nothing), with a barrier after each
+  save; a sharded buffer is gathered for the checkpoint on the loop's
+  thread, before any worker starts; a resume is read by rank 0 and
+  broadcast.
+
+A run of ``d`` ranks plays the one-process self-play games; at one rank
+it equals the one-device run bit for bit, and a resumed run at the same
+``d`` continues bit for bit in both replay modes.
 """
 from __future__ import annotations
 
@@ -47,39 +77,70 @@ import torch
 
 from . import arena as arena_lib
 from . import checkpoint as ckpt_lib
+from . import hostfetch
 from . import learner as learner_lib
 from . import replay as replay_lib
 from . import selfplay as selfplay_lib
 from .config import Config
 from .logger import Logger, setup_logger
-from .mcts.search import resolve_device
 from .models import resnet
+from .parallel import dp as dp_lib
+from .parallel import mesh as mesh_lib
+from .parallel import multihost as mh
+from .parallel import replay_sharded as rs_lib
 
 
 class AlphaZeroPipeline:
-    """End-to-end training pipeline on ``device`` (default CUDA)."""
+    """End-to-end training pipeline on ``device`` (default CUDA; a rank of
+    a process group defaults to its own card)."""
 
     def __init__(self, config: Config, run_name: str = "run",
                  logger: Optional[Logger] = None, device=None):
         self.config = config
-        self.device = resolve_device(device)
-        # the initial weights come from config.seed; torch's global
-        # generator is left as it was
+        self.mesh = mesh_lib.make_mesh(config.mesh, device)
+        self.device = self.mesh.device
+        self.is_primary = mh.is_primary()
+        d = self.mesh.world
+        deferred_logs = []
+        # batch axes divide over the ranks: round up rather than fail
+        for section, name in ((config.self_play, "num_parallel_games"),
+                              (config.training, "batch_size")):
+            v = getattr(section, name)
+            if v % d:
+                setattr(section, name, -(-v // d) * d)
+                deferred_logs.append(f"{name} rounded {v} -> "
+                                     f"{getattr(section, name)} to divide "
+                                     f"over {d} ranks")
+        # the initial weights come from config.seed (alike on every rank);
+        # torch's global generator is left as it was
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(config.seed)
             self.net = resnet.build_network(config.model).to(self.device)
-        self.learner = learner_lib.Learner(self.net, config.training,
-                                           device=self.device)
-        self.buffer = replay_lib.create(config.training.replay_capacity,
-                                        board_size=config.model.board_size,
-                                        device=self.device)
-        self.selfplay = selfplay_lib.SelfPlay(
-            self.net, config.mcts, config.self_play,
-            compat=config.env_compat, device=self.device)
-        # best-so-far model for the promotion gate
+        self.learner = dp_lib.DPTrainer(self.net, config.training,
+                                        self.mesh)
+        # a sharded buffer is meaningless on one rank (as in JAX)
+        self.shard_replay = config.training.shard_replay_buffer and d > 1
+        if self.shard_replay:
+            cap = config.training.replay_capacity
+            rc = rs_lib.rounded_capacity(cap, d)
+            if rc != cap:
+                deferred_logs.append(f"replay_capacity rounded {cap} -> "
+                                     f"{rc} to divide over {d} ranks")
+                config.training.replay_capacity = rc
+            self.buffer = rs_lib.create(rc, self.mesh,
+                                        board_size=config.model.board_size)
+        else:
+            self.buffer = replay_lib.create(
+                config.training.replay_capacity,
+                board_size=config.model.board_size, device=self.device)
+        # best-so-far model for the promotion gate: rank 0 reads it, every
+        # rank takes rank 0's
         self.best_net = copy.deepcopy(self.net)
-        restored_best = ckpt_lib.restore_best(
-            config.training.checkpoint_dir, map_location=self.device)
+        restored_best = None
+        if self.is_primary:
+            restored_best = ckpt_lib.restore_best(
+                config.training.checkpoint_dir, map_location="cpu")
+        restored_best = mh.broadcast_from_primary(restored_best)
         if restored_best is not None:
             self.best_net.load_state_dict(restored_best)
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -91,18 +152,28 @@ class AlphaZeroPipeline:
         self.metrics_history: list = []
         self._last_live_fraction = 0.0
         self._last_relabel_stats: Dict[str, float] = {}
+        # the gate's units this rank played last
+        self._last_eval_units: list = []
         # checkpoint schedule: saves so far, the last fresh host copy of the
         # buffer, and the background save worker with the error it hit
         self._saves_done = 0
         self._replay_host: Optional[Dict[str, Any]] = None
         self._bg_save: Optional[threading.Thread] = None
         self._bg_save_error: Optional[BaseException] = None
+        # ranks other than 0 write nothing
         self.logger = logger or setup_logger(
             config.logging.log_dir, run_name, level=config.logging.log_level,
-            use_tensorboard=config.logging.use_tensorboard,
-            verbose=config.logging.verbose)
+            use_tensorboard=(config.logging.use_tensorboard
+                             and self.is_primary),
+            verbose=config.logging.verbose and self.is_primary,
+            file_output=self.is_primary)
         self.logger.log_config(config.to_dict())
         self.logger.log_model_graph(repr(self.net))
+        if mesh_lib.is_initialized():
+            self.logger.info("data-parallel over %d rank(s), rank %d on %s",
+                             d, self.mesh.rank, self.device)
+        for msg in deferred_logs:
+            self.logger.warning(msg)
 
     def _draw_seed(self) -> int:
         """A seed for one self-play batch or tournament (host generator)."""
@@ -149,16 +220,19 @@ class AlphaZeroPipeline:
         only ``tree`` and ``_replay_host``, which no other save touches
         while it runs."""
         t0 = time.perf_counter()
+        timeout = self.config.training.fetch_timeout_s or None
         if not due:
             tree = {**tree, "replay": self._replay_host}
         elif interval > 1:
-            self._replay_host = ckpt_lib.to_host(tree["replay"], ready,
-                                                 self.device)
+            self._replay_host = hostfetch.guarded(
+                lambda: ckpt_lib.to_host(tree["replay"], ready, self.device),
+                timeout, what="replay buffer copy")
             tree = {**tree, "replay": self._replay_host}
         replay_s = time.perf_counter() - t0
         path = ckpt_lib.save_checkpoint(
             self.config.training.checkpoint_dir, iteration, tree,
-            async_save=async_save, ready=ready, device=self.device)
+            async_save=async_save, ready=ready, device=self.device,
+            fetch_timeout_s=timeout)
         self.logger.info("checkpoint %s: %s (host copy %.3f s, replay %s)",
                          "save scheduled (async)" if async_save else "saved",
                          path, replay_s + ckpt_lib.last_host_copy_seconds(),
@@ -190,7 +264,12 @@ class AlphaZeroPipeline:
         copied them directly would need a join before each of those writes
         (JAX, whose arrays are immutable, joins only before it donates
         them). The clone costs one device copy of the state (about 115 MB
-        at the flagship's 200,000-row buffer) and a launch per tensor."""
+        at the flagship's 200,000-row buffer) and a launch per tensor.
+
+        Every rank calls this: ``due`` depends only
+        on the save count, which all ranks share; a sharded buffer is
+        gathered (a collective) here on every rank when due; rank 0 alone
+        writes; a barrier ends the save."""
         self._join_bg_save()  # at most one save in flight
         cfg = self.config.training
         interval = max(1, cfg.replay_checkpoint_interval)
@@ -198,47 +277,71 @@ class AlphaZeroPipeline:
                or self._saves_done % interval == 0)
         self._saves_done += 1
         tree = self._checkpoint_tree()
-        if not due:
+        if self.shard_replay and due:
+            tree["replay"] = rs_lib.checkpoint_tree(
+                self.buffer, cfg.fetch_timeout_s or None)
+        elif not due:
             tree["replay"] = None  # the last fresh copy goes in instead
         iteration = self.iteration
-        if not (cfg.async_checkpointing and cfg.background_checkpoint_fetch):
-            return self._finish_save(tree, due, interval, iteration,
+        path = ckpt_lib.checkpoint_path(cfg.checkpoint_dir, iteration)
+        background = (cfg.async_checkpointing
+                      and cfg.background_checkpoint_fetch)
+        if self.is_primary and not background:
+            path = self._finish_save(tree, due, interval, iteration,
                                      cfg.async_checkpointing)
-        clone, ready = ckpt_lib.snapshot(tree, self.device)
+        elif self.is_primary:
+            clone, ready = ckpt_lib.snapshot(tree, self.device)
 
-        def work():
-            try:
-                # the worker already runs beside the loop: write in place
-                self._finish_save(clone, due, interval, iteration, False,
-                                  ready)
-            except BaseException as e:  # raised by the next join
-                self._bg_save_error = e
+            def work():
+                try:
+                    if self.device.type == "cuda":  # the rank's card
+                        torch.cuda.set_device(self.device)
+                    # the worker already runs beside the loop: write in
+                    # place
+                    self._finish_save(clone, due, interval, iteration,
+                                      False, ready)
+                except BaseException as e:  # raised by the next join
+                    self._bg_save_error = e
 
-        self._bg_save = threading.Thread(target=work, daemon=True,
-                                         name=f"bgsave:{iteration}")
-        self._bg_save.start()
-        return ckpt_lib.checkpoint_path(cfg.checkpoint_dir, iteration)
+            self._bg_save = threading.Thread(target=work, daemon=True,
+                                             name=f"bgsave:{iteration}")
+            self._bg_save.start()
+        mh.barrier("save_checkpoint")
+        return path
 
     def load_checkpoint(self, path: Optional[str] = None) -> bool:
         """Restore the whole training state; ``path=None`` loads the latest.
-        Returns False when there is none."""
+        Returns False when there is none. Rank 0 reads the checkpoint and
+        every rank takes its tree (a broadcast), so the other ranks need no
+        access to the checkpoint directory."""
         self._join_bg_save()
-        if path is None:
-            path = ckpt_lib.latest_checkpoint(
-                self.config.training.checkpoint_dir)
-        if path is None:
+        tree = None
+        if self.is_primary:
+            if path is None:
+                path = ckpt_lib.latest_checkpoint(
+                    self.config.training.checkpoint_dir)
+            if path is not None:
+                tree = ckpt_lib.restore_checkpoint(path)
+        path, tree = mh.broadcast_from_primary((path, tree))
+        if tree is None:
             return False
-        tree = ckpt_lib.restore_checkpoint(path)
         state = self.learner.state
         state.net.load_state_dict(tree["learner"]["net"])
         state.optimizer.load_state_dict(tree["learner"]["optimizer"])
         state.step = int(tree["learner"]["step"])
         self.best_net.load_state_dict(tree["best"])
         rep = tree["replay"]
-        for name in ("planes", "policy", "value"):
-            getattr(self.buffer, name).copy_(rep[name])
-        self.buffer = self.buffer._replace(cursor=int(rep["cursor"]),
-                                           size=int(rep["size"]))
+        if self.shard_replay:
+            cap = self.config.training.replay_capacity
+            if rep["value"].shape[0] != cap:
+                raise ValueError(f"the checkpoint's replay capacity "
+                                 f"{rep['value'].shape[0]} is not {cap}")
+            self.buffer = rs_lib.from_checkpoint(rep, self.mesh)
+        else:
+            for name in ("planes", "policy", "value"):
+                getattr(self.buffer, name).copy_(rep[name])
+            self.buffer = self.buffer._replace(cursor=int(rep["cursor"]),
+                                               size=int(rep["size"]))
         self.generator.set_state(tree["generators"]["device"])
         self.host_generator.set_state(tree["generators"]["host"])
         self.iteration = int(tree["iteration"])
@@ -264,15 +367,21 @@ class AlphaZeroPipeline:
         new_positions = 0
         total_slots = 0
         relabel_stats: Dict[str, float] = {}
+        timeout = self.config.training.fetch_timeout_s or None
         for b in range(num_batches):
-            traj = self.selfplay.generate_games(self._draw_seed(),
-                                                sp_cfg.num_parallel_games)
+            # this rank's block of the batch
+            traj = dp_lib.sharded_play_games(
+                self.net, num_games=sp_cfg.num_parallel_games,
+                seed=self._draw_seed(), mesh=self.mesh,
+                **selfplay_lib.search_kwargs(self.config.mcts, sp_cfg,
+                                             self.config.env_compat))
             if sp_cfg.exact_value_empties > 0:
                 budget = (sp_cfg.exact_value_budget_s
                           if sp_cfg.exact_value_budget_s > 0 else None)
-                traj, rstats = selfplay_lib.relabel_exact_values_with_stats(
+                # each rank solves its own games
+                traj, rstats = mh.relabel_sharded(
                     traj, sp_cfg.exact_value_empties,
-                    compat=self.config.env_compat, budget_s=budget)
+                    self.config.env_compat, budget, timeout)
                 for k, v in rstats.items():
                     # counts add up over batches; the extremum takes the max
                     if k == "max_empties_solved":
@@ -286,16 +395,27 @@ class AlphaZeroPipeline:
                         "%d empties)", sp_cfg.exact_value_budget_s,
                         rstats["skipped"], rstats["candidates"],
                         rstats["max_empties_solved"])
-            if (sp_cfg.save_every > 0
-                    and self.iteration % sp_cfg.save_every == 0):
-                selfplay_lib.save_trajectory(
-                    traj, sp_cfg.save_dir, f"it{self.iteration:06d}_b{b}")
-            planes, policy, value, valid = \
-                selfplay_lib.flatten_trajectory(traj)
+            save_due = (sp_cfg.save_every > 0
+                        and self.iteration % sp_cfg.save_every == 0)
+            # the batch in global game order, on every rank (a sharded
+            # buffer needs it only for the save)
+            whole = (mh.gather_trajectory(traj, timeout)
+                     if save_due or not self.shard_replay else traj)
+            if save_due and self.is_primary:
+                hostfetch.guarded(lambda: selfplay_lib.save_trajectory(
+                    whole, sp_cfg.save_dir, f"it{self.iteration:06d}_b{b}"),
+                    timeout, what="trajectory save")
+            # a sharded buffer takes this rank's games, a replicated one the
+            # whole batch
+            planes, policy, value, valid = selfplay_lib.flatten_trajectory(
+                traj if self.shard_replay else whole)
             self.buffer = replay_lib.add(self.buffer, planes, policy, value,
                                          valid)
             new_positions += int(valid.sum())
             total_slots += valid.numel()
+        if self.shard_replay:  # the SGD step count needs the global count
+            new_positions = mh.global_sum(new_positions)
+            total_slots = mh.global_sum(total_slots)
         # lockstep waste: the share of searched (slot, game) cells that were
         # live games
         self._last_live_fraction = new_positions / max(1, total_slots)
@@ -326,21 +446,34 @@ class AlphaZeroPipeline:
         ar.add_player("current", self.learner.net)
         ar.add_player("best", self.best_net)
         ar.add_player("random", None)
-        leaderboard = ar.run_tournament(self._draw_seed())
+        # each rank plays its share of the units; every rank replays the
+        # ELO updates from the gathered scores
+        leaderboard = ar.run_tournament_sharded(
+            self._draw_seed(), self.mesh.rank, self.mesh.world,
+            gather=mh.gather_unit_scores)
+        self._last_eval_units = list(ar.units_played)
         board = {p["player_id"]: p["rating"] for p in leaderboard}
-        current_elo = board["current"]
-        promoted = current_elo > board["best"] + cfg.promotion_elo_margin
+        current_elo, best_elo, random_elo = (
+            board["current"], board["best"], board["random"])
+        promoted = current_elo > best_elo + cfg.promotion_elo_margin
+        # rank 0 decides for every rank
+        current_elo, best_elo, random_elo, promoted = \
+            mh.broadcast_from_primary(
+                (current_elo, best_elo, random_elo, promoted))
         if promoted:
             self.best_net.load_state_dict(self.learner.state_dict())
             self.best_elo = current_elo
-            ckpt_lib.save_best(
-                self.config.training.checkpoint_dir,
-                self.best_net.state_dict(),
-                async_save=self.config.training.async_checkpointing)
+            if self.is_primary:
+                ckpt_lib.save_best(
+                    self.config.training.checkpoint_dir,
+                    self.best_net.state_dict(),
+                    async_save=self.config.training.async_checkpointing,
+                    fetch_timeout_s=(self.config.training.fetch_timeout_s
+                                     or None))
             self.logger.info("model promoted to best (elo %.1f > %.1f)",
-                             current_elo, board["best"])
+                             current_elo, best_elo)
         return {"eval/elo": current_elo, "eval/best_elo": self.best_elo,
-                "eval/random_elo": board["random"],
+                "eval/random_elo": random_elo,
                 "eval/promoted": float(promoted)}
 
     def _log_replay_embedding(self, step: int, n: int = 256) -> None:
@@ -353,8 +486,8 @@ class AlphaZeroPipeline:
         change training: the same seed gives the same weights, buffer and
         generator states with TensorBoard on or off."""
         if (not self.config.logging.use_tensorboard or not self.buffer.size
-                or self.logger.writer is None):
-            return
+                or self.shard_replay or self.logger.writer is None):
+            return  # a sharded buffer is only gathered for checkpoints
         seed = int(np.random.SeedSequence(
             [self.config.seed, 0x10C, step]).generate_state(1, np.uint64)[0])
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -406,7 +539,7 @@ class AlphaZeroPipeline:
                     "train/seconds": t_tr - t_sp,
                     "eval/seconds": t_ev - t_tr,
                     "checkpoint/seconds": t_ck - t_ev,
-                    "replay/size": self.buffer.size,
+                    "replay/size": rs_lib.total_size(self.buffer),
                     **eval_metrics,
                 }
                 metrics.update({f"selfplay/relabel_{k}": v for k, v in
@@ -430,7 +563,8 @@ class AlphaZeroPipeline:
         finally:
             self._join_bg_save()
             ckpt_lib.wait_for_saves()
-            if logging_cfg.save_checkpoints and logging_cfg.save_best_only:
+            if (self.is_primary and logging_cfg.save_checkpoints
+                    and logging_cfg.save_best_only):
                 for old in ckpt_lib.prune_checkpoints(
                         self.config.training.checkpoint_dir, keep_latest=1):
                     self.logger.info("pruned old checkpoint: %s", old)

@@ -76,14 +76,21 @@ def gather(buffer: ReplayBuffer, idx: torch.Tensor
             buffer.value.index_select(0, idx))
 
 
+def sample_indices(buffer: ReplayBuffer,
+                   generator: Optional[torch.Generator],
+                   batch_size: int) -> torch.Tensor:
+    """``batch_size`` row indices drawn uniformly, with replacement, from
+    the filled rows, on the buffer's device from ``generator``."""
+    return torch.randint(0, max(buffer.size, 1), (batch_size,),
+                         generator=generator, device=buffer.value.device)
+
+
 def sample(buffer: ReplayBuffer, generator: Optional[torch.Generator],
            batch_size: int
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Uniform sample with replacement from the filled rows, drawn on the
     buffer's device from ``generator`` -> (planes f32, policy, value)."""
-    idx = torch.randint(0, max(buffer.size, 1), (batch_size,),
-                        generator=generator, device=buffer.value.device)
-    return gather(buffer, idx)
+    return gather(buffer, sample_indices(buffer, generator, batch_size))
 
 
 def reset(buffer: ReplayBuffer) -> ReplayBuffer:

@@ -33,6 +33,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import hostfetch
 from .config import MCTSConfig, SelfPlayConfig
 from .env import bitboard as env
 from .env import endgame as endgame_lib
@@ -40,6 +41,7 @@ from .mcts import gumbel as gumbel_lib
 from .mcts import search as search_lib
 from .mcts import tree as tree_lib
 from .mcts.search import resolve_device
+from .ops import random as rand_ops
 
 
 class Trajectory(NamedTuple):
@@ -81,6 +83,7 @@ def play_games(net, *, num_games: int, num_simulations: int, c_puct: float,
                gumbel_noise: Optional[torch.Tensor] = None,
                log_gamma: Optional[torch.Tensor] = None,
                sample_noise: Optional[torch.Tensor] = None,
+               first_game: int = 0, global_games: Optional[int] = None,
                device=None) -> Trajectory:
     """Play ``num_games`` games in lockstep on ``device`` (default CUDA;
     the net must already be there).
@@ -92,6 +95,13 @@ def play_games(net, *, num_games: int, num_simulations: int, c_puct: float,
     (PUCT's raw log-gamma draw behind the root Dirichlet noise) and
     ``sample_noise`` ``[max_moves, B, A]`` (the Gumbel draw that samples
     PUCT's move, as ``search.sample_actions`` takes it).
+
+    With ``global_games`` these games are rows ``[first_game, first_game +
+    B)`` of a batch of ``global_games``: each draw is made at the whole
+    batch's shape, in the same order, and these rows are kept. So the ranks
+    of a data-parallel run, each playing its block from the same seed,
+    play the games one process would (``parallel.dp.sharded_play_games``).
+    The loop still ends its searches when this block's games are all over.
     """
     if algorithm not in ("puct", "gumbel"):
         raise ValueError(f"unknown search algorithm {algorithm!r}")
@@ -103,6 +113,18 @@ def play_games(net, *, num_games: int, num_simulations: int, c_puct: float,
     states = init_states if init_states is not None \
         else env.initial_state((num_games,), device=dev)
     b = states.done.shape[0]
+    rows = slice(first_game, first_game + b)
+    if global_games is not None and not 0 <= first_game <= \
+            global_games - b:
+        raise ValueError(f"games [{first_game}, {first_game + b}) are not "
+                         f"rows of a batch of {global_games}")
+
+    def own_rows(draw, injected):
+        """Slot t's injected draw, else this block's rows of a draw at the
+        whole batch's shape (None: the search draws it itself)."""
+        if injected is not None:
+            return injected[t]
+        return None if global_games is None else draw()[rows]
     warm = None
     if tree_reuse == "root":
         warm = (torch.zeros(b, env.NUM_ACTIONS, device=dev),
@@ -127,7 +149,8 @@ def play_games(net, *, num_games: int, num_simulations: int, c_puct: float,
                 max_depth=max_depth, compat=compat, num_stages=num_stages,
                 leaf_batch=leaf_batch, warm_root=warm,
                 warm_discount=tree_reuse_discount,
-                gumbel=None if gumbel_noise is None else gumbel_noise[t],
+                gumbel=own_rows(lambda: gumbel_lib.draw_gumbel(
+                    global_games, generator, dev), gumbel_noise),
                 generator=generator, device=dev)
             actions = res.chosen_action
         else:
@@ -138,13 +161,17 @@ def play_games(net, *, num_games: int, num_simulations: int, c_puct: float,
                 compat=compat, add_noise=True, num_stages=num_stages,
                 leaf_batch=leaf_batch, warm_root=warm,
                 warm_discount=tree_reuse_discount,
-                log_gamma=None if log_gamma is None else log_gamma[t],
+                log_gamma=own_rows(lambda: rand_ops.sample_log_gamma(
+                    dirichlet_alpha, (global_games, env.NUM_ACTIONS),
+                    generator, device=dev), log_gamma),
                 generator=generator, device=dev)
             temp = temp_init if t < temp_threshold else temp_final
             actions = search_lib.sample_actions(
                 search_lib.probs_with_temperature(res.visit_counts, temp),
                 generator=generator,
-                noise=None if sample_noise is None else sample_noise[t])
+                noise=own_rows(lambda: search_lib.draw_sample_noise(
+                    (global_games, env.NUM_ACTIONS), generator, dev),
+                    sample_noise))
         records.append((env.canonical_planes(states, compat=compat),
                         res.action_probs, states.to_move, live,
                         torch.where(live, actions, -1)))
@@ -292,6 +319,7 @@ def _popcount64_np(x: np.ndarray) -> np.ndarray:
 def relabel_exact_values_with_stats(
         traj: Trajectory, max_empties: int, compat: bool = False,
         budget_s: Optional[float] = None,
+        fetch_timeout_s: Optional[float] = None,
 ) -> Tuple[Trajectory, Dict[str, float]]:
     """Replace the value targets of positions with at most ``max_empties``
     empty squares by the sign of the solver's optimal-play disc
@@ -303,7 +331,8 @@ def relabel_exact_values_with_stats(
     deserve. The solver's win/draw/loss probe is ground truth.
 
     The stones are packed on the trajectory's device and fetched with
-    ``to_move``, ``valid`` and ``value``; the solve runs on the host
+    ``to_move``, ``valid`` and ``value`` (under the ``hostfetch`` watchdog
+    when ``fetch_timeout_s`` > 0); the solve runs on the host
     (``relabel_packed_np``) and the new values go back to the device.
     Candidates are solved empties-ascending until ``budget_s`` wall-clock
     seconds are spent (``None``: no limit). Stats: ``candidates``,
@@ -313,10 +342,12 @@ def relabel_exact_values_with_stats(
     realised outcome).
     """
     mine, theirs = pack_stone_boards(traj.planes)
-    host = lambda x: x.cpu().numpy()
+    mine, theirs, to_move, valid, old = (x.numpy() for x in
+                                         hostfetch.device_get(
+        (mine, theirs, traj.to_move, traj.valid, traj.value),
+        fetch_timeout_s, what="relabel fetch"))
     value, stats = relabel_packed_np(
-        host(mine).view(np.uint64), host(theirs).view(np.uint64),
-        host(traj.to_move), host(traj.valid), host(traj.value),
+        mine.view(np.uint64), theirs.view(np.uint64), to_move, valid, old,
         max_empties=max_empties, compat=compat, budget_s=budget_s)
     if stats["solved"] == 0:
         return traj, stats

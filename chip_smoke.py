@@ -78,18 +78,30 @@ Phases (each raises on failure; the script exits 1 if any failed):
 17. ``pipeline_leftovers``: three flagship iterations through ``cli
     train``, cut in games, simulations and SGD steps, with the background
     checkpoint fetch and ``replay_checkpoint_interval`` 2: which saves
-    carry a fresh buffer, and every checkpoint holds the state at its save.
+    carry a fresh buffer, and every checkpoint holds the state at its save;
+18. ``multi_gpu``: the data-parallel path, with the fetch watchdog on
+    (its gathers and copies on the watchdog's thread). One iteration of
+    the same cut flagship config through ``cli train`` without a process
+    group, as a process group of one rank over NCCL (``--coordinator``),
+    and without one again: checkpoint, trajectory and metrics equal bit
+    for bit (cuDNN deterministic; a float leaf that is not is named and
+    held to ``MULTI_GPU_TOL``), and the pipeline's collectives counted;
+    ``benchmarks.bench_scaling`` over the cards there are; with two cards
+    or more, a two-rank NCCL iteration (``two_ranks``: equal weights, rank
+    0 the only writer), else the line says why not. With arguments (``--rank r --world d --port p --out
+    dir``) the script is one rank of that two-rank run.
 
 Prints the ``kernels``, ``selfplay``, ``cuda_vs_cpu``, ``gate``,
 ``checkpoint``, ``pipeline_cli``, ``iteration_cli``, ``default_selfplay``,
 ``default_iteration_cli``, ``puct_cuda_vs_cpu``, ``host_play``, ``bench``,
-``pipeline_leftovers`` and ``training`` JSON lines (``training.iteration_s`` sums the separately
-timed phases 3-6; ``iteration_cli_s`` is the pipeline's own iteration
-from phase 7; each kernel row's ``launches`` counts the main paths' launches
-at its shape, and ``launches_other_shapes`` the rest, each with its shape),
-the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``. Without a CUDA device, or without
-the package beside it, it exits non-zero and prints no result.
+``pipeline_leftovers``, ``multi_gpu`` and ``training`` JSON lines
+(``training.iteration_s`` sums the separately timed phases 3-6;
+``iteration_cli_s`` is the pipeline's own iteration from phase 7; each
+kernel row's ``launches`` counts the main paths' launches at its shape, and
+``launches_other_shapes`` the rest, each with its shape), the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``. Without a
+CUDA device, or without the package beside it, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -1608,6 +1620,25 @@ def bench(results: dict) -> None:
     results["bench"] = out
 
 
+def _cut_flagship_config():
+    """``configs/flagship_run.json`` cut for time (64 games of Gumbel-8
+    self-play, SGD in one chunk of 16 steps at batch 256, a 1-round gate at
+    Gumbel-2, no console log) and the cuts, by field."""
+    from alphazero_reversi_tpu_torch.config import Config
+
+    cfg = Config.load(str(ROOT / "configs" / "flagship_run.json"))
+    cuts = {"self_play.num_games": 64, "mcts.num_simulations": 8,
+            "training.batch_size": 256, "training.steps_per_dispatch": 16,
+            "tournament.rounds": 1, "tournament.num_simulations": 2,
+            "logging.verbose": False}
+    cfg.self_play.num_games = cfg.self_play.num_parallel_games = 64
+    cfg.mcts.num_simulations = 8
+    cfg.training.batch_size, cfg.training.steps_per_dispatch = 256, 16
+    cfg.tournament.rounds, cfg.tournament.num_simulations = 1, 2
+    cfg.logging.verbose = False
+    return cfg, cuts
+
+
 def pipeline_leftovers(results: dict) -> None:
     """Three iterations through ``cli train`` of ``configs/flagship_run
     .json`` with ``background_checkpoint_fetch`` on (as the flagship ships
@@ -1628,23 +1659,15 @@ def pipeline_leftovers(results: dict) -> None:
     from alphazero_reversi_tpu_torch import checkpoint as ckpt
     from alphazero_reversi_tpu_torch import cli
     from alphazero_reversi_tpu_torch import pipeline
-    from alphazero_reversi_tpu_torch.config import Config
 
-    cfg = Config.load(str(ROOT / "configs" / "flagship_run.json"))
+    cfg, cuts = _cut_flagship_config()
     if not cfg.training.background_checkpoint_fetch:
         raise AssertionError("the flagship config no longer fetches "
                              "checkpoints in the background")
-    cuts = {"self_play.num_games": 64, "mcts.num_simulations": 8,
-            "training.batch_size": 256, "training.steps_per_dispatch": 16,
-            "tournament.rounds": 1, "tournament.num_simulations": 2,
-            "training.replay_checkpoint_interval": 2,
-            "logging.save_best_only": False, "logging.verbose": False}
-    cfg.self_play.num_games = cfg.self_play.num_parallel_games = 64
-    cfg.mcts.num_simulations = 8
-    cfg.training.batch_size, cfg.training.steps_per_dispatch = 256, 16
-    cfg.tournament.rounds, cfg.tournament.num_simulations = 1, 2
+    cuts.update({"training.replay_checkpoint_interval": 2,
+                 "logging.save_best_only": False})
     cfg.training.replay_checkpoint_interval = 2
-    cfg.logging.save_best_only, cfg.logging.verbose = False, False
+    cfg.logging.save_best_only = False
 
     real = pipeline.AlphaZeroPipeline.save_checkpoint
     saves = []
@@ -1664,13 +1687,7 @@ def pipeline_leftovers(results: dict) -> None:
         return path
 
     def equal(a, b) -> bool:
-        if isinstance(a, torch.Tensor):
-            return torch.equal(a, b)
-        if isinstance(a, dict):
-            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
-        if isinstance(a, (list, tuple)):
-            return len(a) == len(b) and all(map(equal, a, b))
-        return a == b
+        return not _tree_diffs(a, b)
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path = str(Path(tmp) / "config.json")
@@ -1730,7 +1747,260 @@ def pipeline_leftovers(results: dict) -> None:
         states_equal_at_save=True)
 
 
+def _tree_diffs(a, b, path="") -> dict:
+    """Every leaf of two nested trees that differs: ``{path: max abs
+    difference}`` for tensors of one shape and dtype, ``{path: None}``
+    otherwise."""
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return {path: None}
+        if torch.equal(a, b):
+            return {}
+        return {path: (a.double() - b.double()).abs().max().item()}
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return {path: None}
+        return {k: v for key in a
+                for k, v in _tree_diffs(a[key], b[key],
+                                        f"{path}.{key}").items()}
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return {path: None}
+        return {k: v for i, (x, y) in enumerate(zip(a, b))
+                for k, v in _tree_diffs(x, y, f"{path}[{i}]").items()}
+    return {} if a == b else {path: None}
+
+
+MULTI_GPU_TOL = 1e-5  # a float leaf of phase 18's two runs that is not
+# bit-exact must stay within this of the other run, and is named
+
+
+FETCH_TIMEOUT_S = 180.0  # phase 18's training.fetch_timeout_s (as in
+# refbench/flagship_r4_run): the trajectory gather, the relabel fetch and
+# the checkpoint copy run under the watchdog, on its thread
+
+
+def _rank_run(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of phase 18's two-rank run (``chip_smoke.py --rank r
+    --world d --port p --out dir``): ``_cut_flagship_config`` with the
+    fetch watchdog on, through ``AlphaZeroPipeline`` for one iteration,
+    every output under ``<out>/rank<r>``; writes the weights' digest to
+    ``<out>/rank<r>.json``."""
+    import hashlib
+
+    sys.path.insert(0, str(ROOT))
+    from alphazero_reversi_tpu_torch.parallel import mesh
+    from alphazero_reversi_tpu_torch.pipeline import AlphaZeroPipeline
+
+    mesh.initialize_distributed(f"127.0.0.1:{port}", world, rank)
+    try:
+        cfg, _ = _cut_flagship_config()
+        cfg.training.fetch_timeout_s = FETCH_TIMEOUT_S
+        base = Path(out) / f"rank{rank}"
+        cfg.training.checkpoint_dir = str(base / "checkpoints")
+        cfg.logging.log_dir = str(base / "logs")
+        cfg.self_play.save_dir = str(base / "self_play_data")
+        cfg.tournament.output_dir = str(base / "tournament_results")
+        pipe = AlphaZeroPipeline(cfg, run_name="ranks")
+        pipe.train(1)
+        digest = hashlib.sha256()
+        for name, t in sorted(pipe.learner.state_dict().items()):
+            digest.update(name.encode())
+            digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+        metrics = [{k: v for k, v in m.items() if not k.endswith("seconds")}
+                   for m in pipe.metrics_history]
+        (Path(out) / f"rank{rank}.json").write_text(json.dumps(dict(
+            params_sha256=digest.hexdigest(), metrics=metrics,
+            units=pipe._last_eval_units)))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def two_ranks(world: int) -> dict:
+    """``world`` NCCL ranks of ``_rank_run``, each a process of this script
+    (``mesh.spawn_ranks``, a hard timeout of 300 s): equal weights and
+    metrics on every rank, the gate units shared out, and only rank 0's
+    directory holding files."""
+    import tempfile
+
+    sys.path.insert(0, str(ROOT))
+    from alphazero_reversi_tpu_torch.parallel import mesh
+
+    script = str(Path(__file__).resolve())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mesh.spawn_ranks(
+            lambda r, port: [sys.executable, script, "--rank", str(r),
+                             "--world", str(world), "--port", str(port),
+                             "--out", tmp],
+            world, 300, what="two_ranks")
+        wall_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        wrote = {r: sorted(str(f.relative_to(Path(tmp) / f"rank{r}"))
+                           for f in (Path(tmp) / f"rank{r}").rglob("*")
+                           if f.is_file())
+                 for r in range(world) if (Path(tmp) / f"rank{r}").exists()}
+    if any(r["params_sha256"] != ranks[0]["params_sha256"] for r in ranks):
+        raise AssertionError("the ranks' weights differ")
+    if any(r["metrics"] != ranks[0]["metrics"] for r in ranks):
+        raise AssertionError("the ranks' metrics differ")
+    units = sorted(u for r in ranks for u in r["units"])
+    if units != list(range(len(units))):
+        raise AssertionError(f"gate units played {units}")
+    if not wrote.get(0) or any(wrote.get(r) for r in range(1, world)):
+        raise AssertionError(f"files written by rank: {wrote}")
+    return dict(world=world, wall_s=wall_s,
+                fetch_timeout_s=FETCH_TIMEOUT_S,
+                params_sha256=ranks[0]["params_sha256"],
+                units_by_rank=[r["units"] for r in ranks],
+                rank0_files=len(wrote[0]))
+
+
+def multi_gpu(results: dict) -> None:
+    """Phase 18, the port's data-parallel path on the card:
+
+    (a) one iteration of ``_cut_flagship_config`` with the fetch watchdog
+    on (``FETCH_TIMEOUT_S``) through ``cli train`` three times, all with
+    cuDNN deterministic: without a process group,
+    as a process group of one rank over NCCL (``--coordinator
+    127.0.0.1:<port> --num-processes 1 --process-id 0``), and without one
+    again (the NCCL run's wall clock compares with this one: both run
+    warm). The checkpoint (weights, AdamW, best, replay, generators), the
+    saved trajectory and the metrics (all but the seconds) must equal the
+    first run's bit for bit, or a float leaf be within ``MULTI_GPU_TOL``
+    and named; the NCCL run must have issued the pipeline's collectives
+    (counted by kind);
+
+    (b) ``benchmarks.bench_scaling`` over the cards there are (one process,
+    an NCCL rank, per card), cut to one timed call at 8 simulations;
+
+    (c) with two cards or more, ``two_ranks(2)`` over NCCL; with one, the
+    line says it was not run and why."""
+    import glob
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import benchmarks as bm
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch import cli
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+    from alphazero_reversi_tpu_torch.parallel import mesh
+    from alphazero_reversi_tpu_torch.parallel import multihost as mh
+
+    cfg, cuts = _cut_flagship_config()
+    cfg.training.fetch_timeout_s = FETCH_TIMEOUT_S
+    cuts = {**cuts, "training.fetch_timeout_s": FETCH_TIMEOUT_S}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    runs, launches = {}, 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg_path = str(Path(tmp) / "config.json")
+            cfg.save(cfg_path)
+            for name in ("plain", "nccl_world1", "plain_again"):
+                extra = []
+                if name == "nccl_world1":
+                    extra = ["--coordinator",
+                             f"127.0.0.1:{mesh.free_port()}",
+                             "--num-processes", "1", "--process-id", "0"]
+                out = Path(tmp) / name
+                mh.COLLECTIVES.clear()
+                cuda_backup.ROUND_LAUNCHES = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if cli.main(["train", "-c", cfg_path, "--iterations", "1",
+                             "--run-dir", str(out), "--run-name", "mg"]
+                            + extra) != 0:
+                    raise AssertionError(f"cli train ({name}) failed")
+                wall_s = _sync_s(t0)
+                launches += cuda_backup.ROUND_LAUNCHES
+                if mesh.is_initialized():
+                    raise AssertionError("cli train left its process group")
+                (run,) = out.glob("run_*")
+                rows = [json.loads(line) for line in
+                        (run / "logs" / "mg" / "metrics.jsonl").read_text()
+                        .splitlines()]
+                (traj,) = glob.glob(str(run / "self_play_data" / "*.npz"))
+                with np.load(traj) as f:
+                    traj = {k: torch.from_numpy(f[k]) for k in f.files}
+                runs[name] = dict(
+                    wall_s=wall_s, collectives=dict(mh.COLLECTIVES),
+                    tree=ckpt.restore_checkpoint(
+                        str(run / "checkpoints" / "it_000001")),
+                    traj=traj,
+                    metrics=[{k: v for k, v in r.items()
+                              if not k.endswith("seconds")} for r in rows],
+                    seconds=[{k: v for k, v in r.items()
+                              if k.endswith("seconds")} for r in rows])
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    plain, group, again = (runs[k] for k in ("plain", "nccl_world1",
+                                             "plain_again"))
+    if plain["collectives"] or again["collectives"]:
+        raise AssertionError("a run without a process group issued "
+                             "collectives")
+    for kind in ("all_gather", "all_reduce", "broadcast", "barrier"):
+        if not group["collectives"].get(kind):
+            raise AssertionError(f"the NCCL run issued no {kind}: "
+                                 f"{group['collectives']}")
+
+    def differences(other):
+        return {**_tree_diffs(plain["tree"], other["tree"], "checkpoint"),
+                **_tree_diffs(plain["traj"], other["traj"], "trajectory"),
+                **_tree_diffs(plain["metrics"], other["metrics"],
+                              "metrics")}
+
+    diffs, repeat_diffs = differences(group), differences(again)
+    bad = {k: v for k, v in {**diffs, **repeat_diffs}.items()
+           if v is None or v > MULTI_GPU_TOL}
+    if bad:
+        raise AssertionError(f"a run differs from the first plain run: "
+                             f"{bad}")
+    results["round_backup"].setdefault("launches_other_shapes", {})[
+        "multi_gpu (cut flagship, 3 runs: self-play B=64 N=9, gate N=3)"] \
+        = launches
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scaling = bm.bench_scaling(sp_sims=8, repeats=1)
+    scaling_s = _sync_s(t0)
+    for key, rate in (("env", "env_steps_per_s"),
+                      ("selfplay", "moves_per_s")):
+        if not scaling[key] or not all(
+                np.isfinite(r[rate]) and r[rate] > 0 for r in scaling[key]):
+            raise AssertionError(f"scaling {key} rows: {scaling[key]}")
+    if torch.cuda.device_count() >= 2:
+        ranks = two_ranks(2)
+    else:
+        ranks = {"run": False, "why": "one CUDA device: NCCL refuses two "
+                 "ranks on one device, so the two-rank run needs two cards"}
+    results["multi_gpu"] = dict(
+        config="configs/flagship_run.json", cuts=cuts, iterations=1,
+        world1=dict(bit_exact=not diffs, within_tol=diffs,
+                    plain_repeat_bit_exact=not repeat_diffs,
+                    tolerance=MULTI_GPU_TOL,
+                    compared=["checkpoint", "trajectory", "metrics"],
+                    collectives=group["collectives"],
+                    wall_s={k: r["wall_s"] for k, r in runs.items()},
+                    seconds={k: r["seconds"] for k, r in runs.items()},
+                    round_backup_launches=launches),
+        scaling=dict(cut="sp_sims 8, repeats 1 (else the defaults)",
+                     wall_s=scaling_s, **scaling),
+        two_ranks=ranks)
+
+
 def main() -> int:
+    if len(sys.argv) > 1:  # one rank of phase 18's two-rank run
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        for flag in ("--rank", "--world", "--port"):
+            ap.add_argument(flag, type=int, required=True)
+        ap.add_argument("--out", required=True)
+        a = ap.parse_args()
+        _rank_run(a.rank, a.world, a.port, a.out)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1791,6 +2061,7 @@ def main() -> int:
         phase("host_play", lambda: host_play(results))
         phase("bench", lambda: bench(results))
         phase("pipeline_leftovers", lambda: pipeline_leftovers(results))
+        phase("multi_gpu", lambda: multi_gpu(results))
 
     kernels = [results[k] for k in ("backup_link", "round_backup",
                                     *(x[0] for x in PUCT_SHAPES))
@@ -1816,7 +2087,7 @@ def main() -> int:
         print(json.dumps({"iteration_cli": results["iteration_cli"]}))
     for name in ("default_selfplay", "default_iteration_cli",
                  "puct_cuda_vs_cpu", "host_play", "bench",
-                 "pipeline_leftovers"):
+                 "pipeline_leftovers", "multi_gpu"):
         if name in results:
             print(json.dumps({name: results[name]}))
     if "training" in results:

@@ -239,3 +239,47 @@ def test_bench_needs_the_card_unless_told():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):
         tbench.main(["env", "--batch", "4", "--steps", "1"])
+
+
+SCALING_ENV_KEYS = ["devices", "batch", "env_steps_per_s", "efficiency_pct"]
+SCALING_SELFPLAY_KEYS = ["devices", "games", "moves_per_s", "efficiency_pct"]
+
+
+def test_scaling_has_jax_arguments_and_rows():
+    """``bench_scaling``: the JAX function's arguments and defaults (plus
+    ``device``) and its row keys; 1 and 2 gloo ranks, spawned, at a tiny
+    size, the rates counting both ranks' work."""
+    import inspect
+
+    jparams = inspect.signature(jbench.bench_scaling).parameters
+    tparams = inspect.signature(tbench.bench_scaling).parameters
+    assert [(k, p.default) for k, p in jparams.items()] == \
+        [(k, p.default) for k, p in tparams.items() if k != "device"]
+    out = tbench.bench_scaling([1, 2, 1000], env_batch_per_device=16,
+                               env_steps=4, sp_games_per_device=1,
+                               sp_sims=2, repeats=1, device="cpu")
+    assert out["devices_available"] >= 2
+    assert [r["devices"] for r in out["env"]] == [1, 2]
+    assert [r["batch"] for r in out["env"]] == [16, 32]
+    assert [r["games"] for r in out["selfplay"]] == [1, 2]
+    for rows, keys, rate in ((out["env"], SCALING_ENV_KEYS,
+                              "env_steps_per_s"),
+                             (out["selfplay"], SCALING_SELFPLAY_KEYS,
+                              "moves_per_s")):
+        assert all(list(r) == keys for r in rows)
+        assert all(np.isfinite(r[rate]) and r[rate] > 0 for r in rows)
+        assert rows[0]["efficiency_pct"] == 100.0
+
+
+def test_scaling_command_labels_every_row(capsys, monkeypatch):
+    def fake(devices, env_batch, **kw):
+        assert devices == [2] and env_batch == 8 and kw["sp_sims"] == 3
+        return {"devices_available": 2,
+                "env": [{"devices": 2, "batch": 16}],
+                "selfplay": [{"devices": 2, "games": 4}]}
+
+    monkeypatch.setattr(tbench, "bench_scaling", fake)
+    (row,) = _rows(capsys, ["scaling", "--devices", "2",
+                            "--env-batch-per-device", "8", "--sims", "3"])
+    assert all(r["device"] == "cpu" for r in row["env"] + row["selfplay"])
+

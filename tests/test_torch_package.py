@@ -15,6 +15,7 @@ from alphazero_reversi_tpu_torch.config import Config, ModelConfig
 from alphazero_reversi_tpu_torch.env import bitboard as tenv
 from alphazero_reversi_tpu_torch.mcts import gumbel, search
 from alphazero_reversi_tpu_torch.models import resnet
+from alphazero_reversi_tpu_torch.parallel import dp, mesh
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "alphazero_reversi_tpu_torch").rglob("*.py")) \
@@ -42,7 +43,9 @@ def test_ast_check_covers_every_port_module():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for module in ("ops/random.py", "zobrist.py", "mcts/transposition.py",
                    "mcts/search.py", "env/game.py", "interop.py", "cli.py",
-                   "benchmarks.py"):
+                   "benchmarks.py", "hostfetch.py", "parallel/__init__.py",
+                   "parallel/mesh.py", "parallel/multihost.py",
+                   "parallel/dp.py", "parallel/replay_sharded.py"):
         assert f"alphazero_reversi_tpu_torch/{module}" in names
 
 
@@ -91,6 +94,12 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         arena.play_units([None, None], [(0, 1, 2, tenv.BLACK)],
                          num_simulations=2, temperature=1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dp.DPTrainer(net, Config().training)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dp.sharded_play_games(net, num_games=2, seed=0, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):  # before any rendezvous
+        mesh.initialize_distributed("127.0.0.1:1", 1, 0)
     cfg = Config()
     cfg.logging.log_dir = str(tmp_path / "logs")
     with pytest.raises(RuntimeError, match="CUDA"):
