@@ -337,7 +337,7 @@ class Arena:
         self.players: List[Player] = []
         # play_units' counts since the arena was made
         self.play_info: Dict[str, int] = {}
-        # unit indices the last run_tournament_sharded played here
+        # unit indices the last run_tournament(_sharded) played here
         self.units_played: List[int] = []
 
     def add_player(self, name: str, net: Optional[nn.Module] = None,
@@ -389,97 +389,110 @@ class Arena:
                           generators=self._generators(seeds),
                           **self._play_kwargs())
 
-    def run_tournament(self, seed: int, rounds: Optional[int] = None
-                       ) -> List[Dict]:
+    def run_tournament(self, seed: int, rounds: Optional[int] = None, *,
+                       shard_index: int = 0, shard_count: int = 1,
+                       gather: Optional[Callable] = None) -> List[Dict]:
         """Every pair plays ``games_per_pair`` games per round; per-game ELO
         updates. ``merge_pairings`` plays the canonical units all together,
         ``batch_rounds`` one batch per pairing, otherwise one match per
         pairing per round with the first mover alternating by ``(i + j +
-        round) % 2``."""
+        round) % 2``.
+
+        The pairing mode's units of play (``_units``) may be dealt out over
+        shards (``_run_units``); every unit has its own generator seeds and
+        the ratings never feed back into play, so every shard ends with the
+        one-shard leaderboard and history."""
         rounds = rounds if rounds is not None else self.config.rounds
-        n = len(self.players)
-        per_pair: Dict[Tuple[int, int], List[float]] = {}
-        if self.config.merge_pairings:
-            units = self._tournament_units(seed, rounds)
-            for (i, j, _, _, _), s in zip(units,
-                                          self.play_units_merged(units)):
-                per_pair.setdefault((i, j), []).extend(float(x) for x in s)
-            self._replay_elo(per_pair, rounds)
-            return self.elo.get_leaderboard()
-        if self.config.batch_rounds:
-            # all rounds of a pairing in one batch (an odd total plays one
-            # filler game whose score is dropped); the ELO updates are
-            # replayed in the round-interleaved order of the path below
-            total = rounds * self.config.games_per_pair
-            match = 0
-            for i in range(n):
-                for j in range(i + 1, n):
-                    if total == 0:
-                        continue
-                    scores = self.play_games(self.players[i],
-                                             self.players[j],
-                                             _seed(seed, match),
-                                             total + total % 2)
-                    match += 1
-                    per_pair[(i, j)] = [float(s) for s in scores[:total]]
-            self._replay_elo(per_pair, rounds)
-            return self.elo.get_leaderboard()
-        match = 0
-        for round_num in range(rounds):
-            for i in range(n):
-                for j in range(i + 1, n):
-                    if (i + j + round_num) % 2 == 0:
-                        first, second = self.players[i], self.players[j]
-                    else:
-                        first, second = self.players[j], self.players[i]
-                    scores = self.play_games(first, second,
-                                             _seed(seed, match),
-                                             self.config.games_per_pair)
-                    match += 1
-                    for s in scores:
-                        self.elo.update_ratings(first.name, second.name,
-                                                float(s))
-        return self.elo.get_leaderboard()
+        return self._run_units(seed, rounds, self.config.merge_pairings,
+                               shard_index, shard_count, gather)
 
     def run_tournament_sharded(self, seed: int, shard_index: int = 0,
                                shard_count: int = 1,
                                gather: Optional[Callable] = None,
                                rounds: Optional[int] = None) -> List[Dict]:
-        """The merged tournament with its units sharded: this shard plays
-        the canonical units ``u`` with ``u % shard_count == shard_index``,
-        all in one ``play_units`` call (``units_played`` lists them);
-        ``gather(scores, owners)`` merges the ``[U, G]`` score rows over the
-        shards, each unit's row from its owner
-        (``parallel.multihost.gather_unit_scores``); then every shard
-        replays the per-game ELO updates in the canonical order, so all
-        leaderboards agree. Each unit's moves come from its own generator
-        (``_seed(seed, pair, colour)``), so a unit's scores do not depend
-        on the shard that plays it. One shard plays every unit: it is
+        """The pipeline's gate over shards: the canonical merged units
+        whatever the pairing mode (as the JAX pipeline's multi-process
+        gate), this shard's all in one ``play_units`` call
+        (``_run_units``). One shard plays every unit: it is
         ``run_tournament``, in the config's pairing mode, and gathers
         nothing."""
         rounds = rounds if rounds is not None else self.config.rounds
-        units = self._tournament_units(seed, rounds)
-        mine = [(u, unit) for u, unit in enumerate(units)
-                if u % shard_count == shard_index]
-        self.units_played = [u for u, _ in mine]
         if shard_count == 1:
             return self.run_tournament(seed, rounds)
+        return self._run_units(seed, rounds, True, shard_index, shard_count,
+                               gather)
+
+    def _run_units(self, seed: int, rounds: int, merged: bool,
+                   shard_index: int, shard_count: int,
+                   gather: Optional[Callable]) -> List[Dict]:
+        """Play this shard's units (``_units``): unit ``u`` when ``u %
+        shard_count == shard_index`` (``units_played`` lists them), each
+        ``play_games`` match alone at the shape one shard gives it, or all
+        merged units in one ``play_units_merged`` call. ``gather(scores,
+        owners)`` merges the ``[U, G]`` score rows over the shards, each
+        unit's row from its owner (``parallel.multihost.score_gather``).
+        Then the ELO updates are replayed in the one-shard order: per-round
+        match by match with the match's first mover as A, otherwise
+        ``_replay_elo``'s."""
+        units = self._units(seed, rounds, merged)
+        mine = [u for u in range(len(units))
+                if u % shard_count == shard_index]
+        self.units_played = mine
         if not units:
             return self.elo.get_leaderboard()
+        if merged:
+            played = self.play_units_merged([units[u] for u in mine])
+        else:
+            played = [self.play_games(self.players[units[u][0]],
+                                      self.players[units[u][1]],
+                                      units[u][3], units[u][2])
+                      for u in mine]
         scores = np.zeros((len(units), max(u[2] for u in units)),
                           np.float32)
-        if mine:
-            played = self.play_units_merged([unit for _, unit in mine])
-            for (u, unit), s in zip(mine, played):
-                scores[u, :unit[2]] = s
+        for u, s in zip(mine, played):
+            scores[u, :len(s)] = s
         if gather is not None:
             scores = gather(scores, np.arange(len(units)) % shard_count)
+        if not (merged or self.config.batch_rounds):
+            # per-round: each match's games in match order, as played
+            for (a, b, n, _), row in zip(units, scores):
+                for s in row[:n]:
+                    self.elo.update_ratings(self.players[a].name,
+                                            self.players[b].name, float(s))
+            return self.elo.get_leaderboard()
+        # an odd batch_rounds total drops its filler game
+        keep = rounds * self.config.games_per_pair
         per_pair: Dict[Tuple[int, int], List[float]] = {}
-        for (i, j, ng, _, _), row in zip(units, scores):
-            per_pair.setdefault((i, j), []).extend(float(x)
-                                                   for x in row[:ng])
+        for (i, j, n, *_), row in zip(units, scores):
+            per_pair.setdefault((i, j), []).extend(
+                float(x) for x in row[:min(n, keep)])
         self._replay_elo(per_pair, rounds)
         return self.elo.get_leaderboard()
+
+    def _units(self, seed: int, rounds: int, merged: bool) -> list:
+        """The units of play, a pure function of the players, the config
+        and ``seed``: the canonical colour-half units when ``merged``
+        (``_tournament_units``); otherwise matches ``(a, b, num_games,
+        match_seed)``, A moving first in the first half, match ``m`` seeded
+        ``_seed(seed, m)``: with ``batch_rounds`` one per pairing of all
+        its ``rounds * games_per_pair`` games (plus a filler game when that
+        is odd), else one per round and pairing of ``games_per_pair``
+        games, in round, pairing order."""
+        if merged:
+            return self._tournament_units(seed, rounds)
+        n = len(self.players)
+        g = self.config.games_per_pair
+        if self.config.batch_rounds:
+            total = rounds * g
+            if total == 0:
+                return []
+            pairs = [(i, j, total + total % 2) for i in range(n)
+                     for j in range(i + 1, n)]
+        else:
+            pairs = [(i, j, g) if (i + j + r) % 2 == 0 else (j, i, g)
+                     for r in range(rounds) for i in range(n)
+                     for j in range(i + 1, n)]
+        return [(a, b, k, _seed(seed, m)) for m, (a, b, k) in enumerate(pairs)]
 
     def _replay_elo(self, per_pair: Dict[Tuple[int, int], List[float]],
                     rounds: int) -> None:

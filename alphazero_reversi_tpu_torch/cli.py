@@ -17,15 +17,22 @@ the card unless ``--device`` says otherwise::
     python -m alphazero_reversi_tpu_torch.cli play -d checkpoints --color white
     python -m alphazero_reversi_tpu_torch.cli import-checkpoint best_model.pth -d checkpoints
 
-``train`` and ``continue`` run data-parallel with ``--coordinator
-host:port --num-processes d --process-id r``: start one process per rank
-(rank r on ``cuda:(r % device_count)``, or all on the host with
-``--device cpu``), each with its own ``--process-id`` and the same other
-arguments; rank 0 listens at the coordinator address and writes every
-output::
+``train``, ``continue`` and ``tournament`` run over several ranks with
+``--coordinator host:port --num-processes d --process-id r``: start one
+process per rank (rank r on ``cuda:(r % device_count)``, or all on the
+host with ``--device cpu``), each with its own ``--process-id`` and the
+same other arguments; rank 0 listens at the coordinator address and
+writes every output. ``train`` is data-parallel; ``tournament`` deals its
+matches (or merged units) out to the ranks and gives the one-process
+leaderboard and ELO file bit for bit in the per-round and
+``batch_rounds`` modes, and on the CPU or at one rank in any mode; in the
+merged mode on several cards a rank's searches batch fewer units, so a
+bf16 forward may round otherwise and change a move::
 
     python -m alphazero_reversi_tpu_torch.cli --device cpu train -c cfg.json \
         --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
+    python -m alphazero_reversi_tpu_torch.cli tournament --model-dir ckpts \
+        --coordinator 127.0.0.1:29500 --num-processes 4 --process-id 3
 """
 from __future__ import annotations
 
@@ -108,44 +115,94 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _load_player(config: Config, model_dir: str, name: str):
+    """The net of checkpoint ``name`` (``it_*`` or ``best_model``) under
+    ``model_dir``; raises when it does not load into the config's net."""
+    if name == "best_model":
+        weights = ckpt_lib.restore_best(model_dir)
+    else:
+        weights = ckpt_lib.restore_checkpoint(
+            os.path.join(model_dir, name))["learner"]["net"]
+    net = resnet.build_network(config.model)
+    net.load_state_dict(weights)
+    return net
+
+
 def cmd_tournament(args) -> int:
     """Round robin over the checkpoints in ``--model-dir`` and the random
-    baseline; ratings persist in the config's ELO file."""
-    config = _load_config(args.config)
-    device = resolve_device(args.device)
-    ar = Arena(config.tournament, compat=config.env_compat, device=device)
-    found: List[str] = []
-    for pattern in ("it_*", "best_model"):
-        found.extend(sorted(glob.glob(os.path.join(args.model_dir,
-                                                   pattern))))
-    for path in found:
-        name = os.path.basename(path)
-        try:
-            if name == "best_model":
-                weights = ckpt_lib.restore_best(args.model_dir)
-            else:
-                weights = ckpt_lib.restore_checkpoint(path)["learner"]["net"]
-            net = resnet.build_network(config.model)
-            net.load_state_dict(weights)
-        except Exception as e:  # skip checkpoints of another config
-            print(f"skipping {name}: {e}", file=sys.stderr)
-            continue
-        ar.add_player(name, net)
-    ar.add_player("random", None)
+    baseline; ratings persist in the config's ELO file. With the
+    distributed arguments each rank plays its share of the tournament's
+    units (``Arena.run_tournament``) and rank 0 alone prints and writes;
+    the leaderboard is the one-process run's (in the merged mode on several
+    cards: expected, not guaranteed; see the module docstring)."""
+    joined = mesh_lib.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id, args.device)
+    try:
+        config = _load_config(args.config)
+        mesh = mesh_lib.make_mesh(config.mesh, args.device)
+        ar = Arena(config.tournament, compat=config.env_compat,
+                   device=mesh.device)
+        # rank 0 picks the players; every rank must load the same ones, or
+        # the ranks' units would differ
+        nets = {}
+        if mh.is_primary():
+            for pattern in ("it_*", "best_model"):
+                for path in sorted(glob.glob(os.path.join(args.model_dir,
+                                                          pattern))):
+                    name = os.path.basename(path)
+                    try:
+                        nets[name] = _load_player(config, args.model_dir,
+                                                  name)
+                    except Exception as e:  # checkpoints of another config
+                        print(f"skipping {name}: {e}", file=sys.stderr)
+        names = mh.broadcast_from_primary(list(nets))
+        failed = None
+        for name in names:
+            if name not in nets:
+                try:
+                    nets[name] = _load_player(config, args.model_dir, name)
+                except Exception as e:
+                    failed = (name, e)
+                    break
+        # every rank learns of a failed load before any rank plays
+        if mh.global_sum(int(failed is not None)):
+            if failed is None:
+                raise RuntimeError("another rank could not load a "
+                                   "checkpoint that rank 0 loaded")
+            raise RuntimeError(f"rank {mesh.rank} could not load "
+                               f"{failed[0]}, which rank 0 loaded: "
+                               f"{failed[1]}") from failed[1]
+        for name in names:
+            ar.add_player(name, nets[name])
+        ar.add_player("random", None)
 
-    elo_path = os.path.join(config.tournament.output_dir,
-                            config.tournament.elo_file)
-    if os.path.exists(elo_path):  # ratings persist across runs
-        ar.elo = ELORatingSystem.load_ratings(elo_path)
-        for p in ar.players:
-            ar.elo.add_player(p.name)
+        elo_path = os.path.join(config.tournament.output_dir,
+                                config.tournament.elo_file)
+        # ratings persist across runs; rank 0's file is every rank's
+        elo = mh.broadcast_from_primary(
+            ELORatingSystem.load_ratings(elo_path)
+            if mh.is_primary() and os.path.exists(elo_path) else None)
+        if elo is not None:
+            ar.elo = elo
+            for p in ar.players:
+                ar.elo.add_player(p.name)
 
-    board = ar.run_tournament(config.seed, rounds=args.rounds)
-    for i, p in enumerate(board):
-        print(f"{i + 1:2d}. {p['player_id']:<30s} "
-              f"{p['rating']:7.1f}  ({p['games_played']} games)")
-    ar.save_results(elo_path)
-    print(f"ratings saved to {elo_path}")
+        # the ranks' shares end far apart: the score gather waits on a
+        # group of its own, made here, while the ranks are together
+        gather = mh.score_gather()
+        board = ar.run_tournament(config.seed, rounds=args.rounds,
+                                  shard_index=mesh.rank,
+                                  shard_count=mesh.world, gather=gather)
+        if mh.is_primary():
+            for i, p in enumerate(board):
+                print(f"{i + 1:2d}. {p['player_id']:<30s} "
+                      f"{p['rating']:7.1f}  ({p['games_played']} games)")
+            ar.save_results(elo_path)
+            print(f"ratings saved to {elo_path}")
+        mh.barrier("tournament saved")
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 
@@ -367,6 +424,15 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--output", "-o", default="config.json")
     c.set_defaults(fn=cmd_create_config)
 
+    def rank_args(q):
+        q.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                       help="run over several ranks: rank 0's address, "
+                            "where the ranks meet (torch.distributed)")
+        q.add_argument("--num-processes", type=int, default=None,
+                       help="run over several ranks: the number of ranks")
+        q.add_argument("--process-id", type=int, default=None,
+                       help="run over several ranks: this process's rank")
+
     def run_args(q):
         q.add_argument("--config", "-c", default=None)
         q.add_argument("--iterations", type=int, default=None,
@@ -379,13 +445,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "<project_name>_<timestamp>)")
         q.add_argument("--checkpoint", default=None,
                        help="explicit checkpoint path to resume from")
-        q.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                       help="data-parallel run: rank 0's address, where "
-                            "the ranks meet (torch.distributed)")
-        q.add_argument("--num-processes", type=int, default=None,
-                       help="data-parallel run: the number of ranks")
-        q.add_argument("--process-id", type=int, default=None,
-                       help="data-parallel run: this process's rank")
+        rank_args(q)
 
     t = sub.add_parser("train", help="run the training pipeline")
     run_args(t)
@@ -402,6 +462,7 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--config", "-c", default=None)
     m.add_argument("--model-dir", required=True)
     m.add_argument("--rounds", type=int, default=None)
+    rank_args(m)
     m.set_defaults(fn=cmd_tournament)
 
     a = sub.add_parser("analyze",

@@ -21,7 +21,8 @@ ranks share (global counts, broadcasts), never from a rank's own.
 * **Per-rank work**: ``relabel_sharded`` solves each rank's own games;
   ``aggregate_stats`` combines the ranks' stats (counts add up,
   ``seconds`` and ``max_empties_solved`` take the max);
-  ``gather_unit_scores`` merges a sharded tournament's score rows.
+  ``gather_unit_scores`` merges a sharded tournament's score rows
+  (``score_gather``: over a gloo group that waits as long as play takes).
 * **Agreement**: ``broadcast_from_primary`` (rank 0's value wins),
   ``barrier``, ``global_sum``.
 
@@ -31,7 +32,9 @@ counts the collectives each helper issued, by kind.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import datetime
+import functools
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -41,6 +44,11 @@ from .. import hostfetch
 from .. import selfplay as selfplay_lib
 from ..env import bitboard as env
 from .mesh import is_initialized
+
+# the longest a rank that has played its share waits at ``score_gather``'s
+# gather for the others (a rank that dies closes its sockets and fails the
+# wait at once; this bounds only a rank that hangs)
+PLAY_TIMEOUT = datetime.timedelta(days=7)
 
 # collectives issued since the last reset, by kind (all_gather, all_reduce,
 # broadcast, barrier)
@@ -171,16 +179,37 @@ def relabel_sharded(traj: "selfplay_lib.Trajectory", max_empties: int,
     return traj, aggregate_stats(stats)
 
 
-def gather_unit_scores(scores: np.ndarray, owners: np.ndarray) -> np.ndarray:
+def gather_unit_scores(scores: np.ndarray, owners: np.ndarray,
+                       group=None) -> np.ndarray:
     """Merge a sharded tournament's ``[U, G]`` score rows
-    (``arena.Arena.run_tournament_sharded``): gather every rank's rows and
-    keep, for each unit, its owner's row. The local rows without a process
-    group."""
+    (``arena.Arena.run_tournament``): gather every rank's rows and keep,
+    for each unit, its owner's row. Over ``group`` (a gloo group, host
+    rows) when given, else over the process group. The local rows without
+    a process group."""
     if not is_initialized():
         return scores
     local = torch.from_numpy(np.ascontiguousarray(scores))
-    rows = from_local_block(local[None], 0)
+    if group is None:
+        rows = from_local_block(local[None], 0)
+    else:
+        parts = [torch.empty_like(local) for _ in range(process_count())]
+        dist.all_gather(parts, local, group=group)
+        _count("all_gather")
+        rows = torch.stack(parts)
     return rows.numpy()[owners, np.arange(scores.shape[0])]
+
+
+def score_gather() -> Callable:
+    """``gather_unit_scores`` for a gather that follows a long stretch of
+    play: over a gloo group of its own whose collectives wait up to
+    ``PLAY_TIMEOUT``, not the process group's ``mesh.TIMEOUT``, since one
+    rank's share of a tournament may end hours before another's. A collective
+    (it makes the group): every rank calls it at the same point, before
+    play. ``gather_unit_scores`` itself without a process group."""
+    if not is_initialized():
+        return gather_unit_scores
+    group = dist.new_group(backend="gloo", timeout=PLAY_TIMEOUT)
+    return functools.partial(gather_unit_scores, group=group)
 
 
 def broadcast_from_primary(value: Any) -> Any:

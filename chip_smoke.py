@@ -89,12 +89,25 @@ Phases (each raises on failure; the script exits 1 if any failed):
     ``benchmarks.bench_scaling`` over the cards there are; with two cards
     or more, a two-rank NCCL iteration (``two_ranks``: equal weights, rank
     0 the only writer), else the line says why not. With arguments (``--rank r --world d --port p --out
-    dir``) the script is one rank of that two-rank run.
+    dir``) the script is one rank of that two-rank run;
+19. ``tournament``: ``cli tournament`` over two flagship-width
+    checkpoints written by the port's checkpoint module (``it_000001``,
+    ``best_model``) and the random baseline, in the flagship's merged
+    Gumbel mode and the default config's per-round PUCT mode, cut to 1
+    round at Gumbel-8 and PUCT-4; each plainly and as an NCCL process
+    group of one rank: equal ratings, games played and history, the
+    collectives issued, ``azr_round_backup`` launches counted by shape.
+    ``tournament_ranks(*worlds)`` (not a phase; on a host of four cards,
+    ``python -c "import chip_smoke; print(chip_smoke.tournament_ranks(2,
+    4))"``) runs the same command over each world of NCCL ranks against
+    one card and reports both ELO tables, the games that differ, each
+    rank's files and each rank's play and gather-wait seconds.
 
 Prints the ``kernels``, ``selfplay``, ``cuda_vs_cpu``, ``gate``,
 ``checkpoint``, ``pipeline_cli``, ``iteration_cli``, ``default_selfplay``,
 ``default_iteration_cli``, ``puct_cuda_vs_cpu``, ``host_play``, ``bench``,
-``pipeline_leftovers``, ``multi_gpu`` and ``training`` JSON lines
+``pipeline_leftovers``, ``multi_gpu``, ``tournament`` and ``training``
+JSON lines
 (``training.iteration_s`` sums the separately timed phases 3-6;
 ``iteration_cli_s`` is the pipeline's own iteration from phase 7; each
 kernel row's ``launches`` counts the main paths' launches at its shape, and
@@ -105,6 +118,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -112,6 +126,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -309,8 +324,9 @@ def check_round_kernel(results: dict) -> None:
     and with nodes past the tree and actions outside [0, 65); bit-exact
     against the plain version on the card at L=1; a captured-graph replay of
     one launch equals the eager launch; and at the gate's shape (B=10,
-    32 levels) bit-exact against both plain versions. Timed at both
-    shapes."""
+    32 levels) and phase 19's (B=2 N=9 at 8 levels, B=1 N=5 at 4)
+    bit-exact against both plain versions. Timed at the flagship's and the
+    gate's shapes."""
     from alphazero_reversi_tpu_torch.mcts import cuda_backup
     from torch_round_inputs import round_inputs
 
@@ -352,20 +368,27 @@ def check_round_kernel(results: dict) -> None:
     if not all(torch.equal(graph_t[k], eager[k]) for k in outs):
         raise AssertionError("graph replay of the round kernel != eager")
 
-    gate = round_inputs(np.random.default_rng(10), 10, 33, 32, 1)
-    got = _round_tensors(gate, dev)
-    _round_call(cuda_backup.round_backup, got)
-    cpu = _round_tensors(gate, "cpu")
-    _round_call(cuda_backup.round_backup_reference, cpu)
-    card = _round_tensors(gate, dev)
-    _round_call(cuda_backup.round_backup_reference, card)
-    torch.cuda.synchronize()
-    for k in outs:
-        max_err = max(max_err, (got[k].cpu() - cpu[k]).abs().max().item())
-        if not (torch.equal(got[k].cpu(), cpu[k])
-                and torch.equal(got[k], card[k])):
-            raise AssertionError(f"round kernel != plain version in {k} at "
-                                 "the gate's shape (B=10, levels=32)")
+    # the gate's shape, then phase 19's: a merged Gumbel-8 unit pair and a
+    # per-round PUCT-4 search
+    for seed, (b, n, levels) in enumerate(((10, 33, 32), (2, 9, 8),
+                                           (1, 5, 4)), 10):
+        case = round_inputs(np.random.default_rng(seed), b, n, levels, 1)
+        got = _round_tensors(case, dev)
+        _round_call(cuda_backup.round_backup, got)
+        cpu = _round_tensors(case, "cpu")
+        _round_call(cuda_backup.round_backup_reference, cpu)
+        card = _round_tensors(case, dev)
+        _round_call(cuda_backup.round_backup_reference, card)
+        torch.cuda.synchronize()
+        for k in outs:
+            max_err = max(max_err,
+                          (got[k].cpu() - cpu[k]).abs().max().item())
+            if not (torch.equal(got[k].cpu(), cpu[k])
+                    and torch.equal(got[k], card[k])):
+                raise AssertionError(f"round kernel != plain version in {k} "
+                                     f"at B={b} N={n} levels={levels}")
+        if b == 10:
+            gate = case
 
     flagship = _time_round(_round_tensors(d1, dev), d1["slot0"])
     at_gate = _time_round(_round_tensors(gate, dev), gate["slot0"])
@@ -375,6 +398,8 @@ def check_round_kernel(results: dict) -> None:
         shape="B=1024 N=33 levels=24 L=1", exact_l1=True, exact_l4=True,
         graph_replay_equal=True, max_abs_err=max_err, **flagship,
         gate_shape="B=10 N=33 levels=32 L=1", gate_exact=True,
+        exact_tournament_shapes=["B=2 N=9 levels=8 L=1",
+                                 "B=1 N=5 levels=4 L=1"],
         **{f"gate_{k}": v for k, v in at_gate.items()})
 
 
@@ -1990,6 +2015,326 @@ def multi_gpu(results: dict) -> None:
         two_ranks=ranks)
 
 
+# phase 19's two tournament modes: the config each is cut from, and the
+# cuts (each in the phase's JSON line)
+TOURNAMENT_MODES = {
+    "merged_gumbel": ("configs/flagship_run.json",
+                      {"tournament.rounds": 1,
+                       "tournament.num_simulations": 8}),
+    "per_round_puct": ("configs/default_config.json",
+                       {"tournament.rounds": 1,
+                        "tournament.num_simulations": 4}),
+}
+TOURNAMENT_PLAYERS = ("it_000001", "best_model", "random")
+
+
+def _tournament_models(root: Path) -> str:
+    """Two flagship-width nets (the 5x128 bf16 ResNet, random weights from
+    seeds 1 and 2) written as ``it_000001`` and ``best_model`` by the
+    port's checkpoint module."""
+    from alphazero_reversi_tpu_torch import checkpoint as ckpt
+    from alphazero_reversi_tpu_torch.config import Config
+    from alphazero_reversi_tpu_torch.models import resnet
+
+    model = Config.load(str(ROOT / "configs" / "flagship_run.json")).model
+    nets = []
+    for seed in (1, 2):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            nets.append(resnet.build_network(model).state_dict())
+    ckpt.save_checkpoint(str(root), 1, {"learner": {"net": nets[0]},
+                                        "iteration": 1})
+    ckpt.save_best(str(root), nets[1])
+    ckpt.wait_for_saves()
+    return str(root)
+
+
+def _tournament_config(mode: str, output_dir: Path, path: Path,
+                       rounds: Optional[int] = None,
+                       sims: Optional[int] = None) -> str:
+    """``TOURNAMENT_MODES[mode]``'s config, cut, its ELO file under
+    ``output_dir`` (``rounds`` and ``sims`` override the cut's), saved at
+    ``path``."""
+    from alphazero_reversi_tpu_torch.config import Config
+
+    source, cuts = TOURNAMENT_MODES[mode]
+    cfg = Config.load(str(ROOT / source))
+    cfg.tournament.rounds = rounds or cuts["tournament.rounds"]
+    cfg.tournament.num_simulations = (sims or
+                                      cuts["tournament.num_simulations"])
+    cfg.tournament.output_dir = str(output_dir)
+    cfg.save(str(path))
+    return str(path)
+
+
+def _elo_result(output_dir: Path) -> dict:
+    """An ELO file's ratings, games played and history, the history's
+    wall-clock timestamps left out."""
+    data = json.loads((output_dir / "elo_ratings.json").read_text())
+    return dict(ratings=data["ratings"], games_played=data["games_played"],
+                history=[{k: v for k, v in h.items() if k != "timestamp"}
+                         for h in data["history"]])
+
+
+@contextlib.contextmanager
+def _round_launches_by_shape():
+    """Tally ``azr_round_backup`` launches by ``B`` and ``N`` (the
+    wrapper's own count, read around each call) while the block runs."""
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+
+    real = cuda_backup.round_backup
+    tally: dict = {}
+
+    def counting(stats, *args, **kwargs):
+        before = cuda_backup.ROUND_LAUNCHES
+        real(stats, *args, **kwargs)
+        key = (f"B={stats.shape[0]} "
+               f"N={stats.shape[1] // cuda_backup.STRIDE}")
+        tally[key] = tally.get(key, 0) + cuda_backup.ROUND_LAUNCHES - before
+
+    cuda_backup.round_backup = counting
+    try:
+        yield tally
+    finally:
+        cuda_backup.round_backup = real
+
+
+def tournament(results: dict) -> None:
+    """Phase 19, ``cli tournament`` on the card over two flagship-width
+    checkpoints and the random baseline, in two pairing modes: the
+    flagship's merged Gumbel tournament and the default config's
+    per-round PUCT one, each cut (``TOURNAMENT_MODES``). Each mode runs
+    plainly, then as a process group of one rank over NCCL
+    (``--coordinator 127.0.0.1:<port> --num-processes 1 --process-id 0``):
+    the ELO files must hold equal ratings, games played and history (the
+    history's timestamps aside), every game a score in {0, 0.5, 1}, the
+    NCCL run must have issued its collectives and left no process group,
+    and every search round must have launched ``azr_round_backup`` (one a
+    simulation at leaf_batch 1), counted by shape."""
+    import tempfile
+
+    from alphazero_reversi_tpu_torch import cli
+    from alphazero_reversi_tpu_torch.mcts import cuda_backup
+    from alphazero_reversi_tpu_torch.parallel import mesh
+    from alphazero_reversi_tpu_torch.parallel import multihost as mh
+
+    others = results["round_backup"].setdefault("launches_other_shapes", {})
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        models = _tournament_models(Path(tmp) / "models")
+        for mode, (source, cuts) in TOURNAMENT_MODES.items():
+            runs = {}
+            for run in ("plain", "nccl_world1"):
+                out = Path(tmp) / mode / run
+                argv = ["tournament", "-c", _tournament_config(
+                    mode, out, Path(tmp) / f"{mode}_{run}.json"),
+                        "--model-dir", models]
+                if run == "nccl_world1":
+                    argv += ["--coordinator",
+                             f"127.0.0.1:{mesh.free_port()}",
+                             "--num-processes", "1", "--process-id", "0"]
+                mh.COLLECTIVES.clear()
+                cuda_backup.ROUND_LAUNCHES = 0
+                with _round_launches_by_shape() as shapes:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if cli.main(argv) != 0:
+                        raise AssertionError(f"cli tournament ({mode}, "
+                                             f"{run}) failed")
+                    wall_s = _sync_s(t0)
+                if mesh.is_initialized():
+                    raise AssertionError("cli tournament left its process "
+                                         "group")
+                runs[run] = dict(wall_s=wall_s, elo=_elo_result(out),
+                                 launches=cuda_backup.ROUND_LAUNCHES,
+                                 by_shape=shapes,
+                                 collectives=dict(mh.COLLECTIVES))
+            plain, group = runs["plain"], runs["nccl_world1"]
+            if plain["elo"] != group["elo"]:
+                raise AssertionError(f"{mode}: the NCCL run's ELO file "
+                                     f"differs: {plain['elo']['ratings']} "
+                                     f"vs {group['elo']['ratings']}")
+            history = plain["elo"]["history"]
+            rounds = cuts["tournament.rounds"]
+            games = 3 * rounds * 2  # 3 pairings, 2 games a pair a round
+            if len(history) != games or not {
+                    h["score_a"] for h in history} <= {0.0, 0.5, 1.0}:
+                raise AssertionError(f"{mode}: {len(history)} games of "
+                                     f"{games}, or a score out of range")
+            if sorted(plain["elo"]["ratings"]) != sorted(TOURNAMENT_PLAYERS):
+                raise AssertionError(f"{mode}: players "
+                                     f"{sorted(plain['elo']['ratings'])}")
+            sims = cuts["tournament.num_simulations"]
+            launches = [r["launches"] for r in runs.values()]
+            if (launches[0] <= 0 or launches[0] != launches[1]
+                    or launches[0] % sims
+                    or sum(plain["by_shape"].values()) != launches[0]):
+                raise AssertionError(f"{mode}: round kernel launches "
+                                     f"{launches}, by shape "
+                                     f"{plain['by_shape']}")
+            if plain["collectives"] or not all(
+                    group["collectives"].get(k) for k in
+                    ("all_gather", "all_reduce", "broadcast", "barrier")):
+                raise AssertionError(f"{mode}: collectives "
+                                     f"{plain['collectives']} / "
+                                     f"{group['collectives']}")
+            for shape, n in plain["by_shape"].items():
+                others[f"tournament {mode} (2 runs, {shape})"] = 2 * n
+            report[mode] = dict(
+                config=source, cuts=cuts, games=games,
+                wall_s={k: r["wall_s"] for k, r in runs.items()},
+                round_backup_launches=launches,
+                launches_by_shape=plain["by_shape"],
+                collectives=group["collectives"],
+                ratings=plain["elo"]["ratings"],
+                games_played=plain["elo"]["games_played"])
+    results["tournament"] = dict(
+        modes=report, players=list(TOURNAMENT_PLAYERS),
+        model="configs/flagship_run.json 5x128 bf16, random weights "
+              "(seeds 1, 2)",
+        compared=["ratings", "games_played", "history"], equal=True)
+
+
+# one process of ``tournament_ranks``: ``cli tournament`` (argv[2:]) with
+# the process group's timeout cut to argv[1] s when that is above 0; prints
+# the seconds its matches took (``play_s``) and its whole ``run_tournament``
+# (``tournament_s``: play, the wait at the score gather and the ELO replay)
+# on a line starting ``RANK_TIMES``
+RANK_LAUNCHER = """
+import datetime, json, sys, time
+from alphazero_reversi_tpu_torch import arena, cli
+from alphazero_reversi_tpu_torch.parallel import mesh
+if float(sys.argv[1]) > 0:
+    mesh.TIMEOUT = datetime.timedelta(seconds=float(sys.argv[1]))
+times = dict(play_s=0.0, tournament_s=0.0)
+def timed(fn, key):
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            times[key] += time.perf_counter() - t0
+    return run
+A = arena.Arena
+A.play_games = timed(A.play_games, "play_s")
+A.play_units_merged = timed(A.play_units_merged, "play_s")
+A.run_tournament = timed(A.run_tournament, "tournament_s")
+code = cli.main(sys.argv[2:])
+print("RANK_TIMES", json.dumps(times), flush=True)
+sys.exit(code)
+"""
+
+
+def _rank_times(out: str) -> dict:
+    line = [l for l in out.splitlines() if l.startswith("RANK_TIMES ")][-1]
+    return json.loads(line.split(" ", 1)[1])
+
+
+def tournament_ranks(*worlds: int, rounds=2,
+                     sims: Optional[dict] = None,
+                     group_timeout_s: float = 0.0) -> dict:
+    """``cli tournament`` over ``world`` NCCL ranks for each of ``worlds``
+    (a process each, rank ``r`` on ``cuda:r``; ``mesh.spawn_ranks``, a
+    hard timeout of 1200 s) against one card (the same command in one
+    process, started the same way), in both of phase 19's modes at
+    ``rounds`` rounds (an int, or a dict by mode; ``sims[mode]`` overrides
+    a mode's simulations).
+    ``group_timeout_s`` above 0 cuts every run's process-group timeout to
+    it (``RANK_LAUNCHER``), so a rank that waits longer for another's share
+    shows that the score gather does not depend on it. Each rank has its
+    own output directory, so a write by a rank other than 0 shows. Reports
+    both ELO tables, whether they are equal, the games whose score or
+    players differ, each rank's files, which ranks printed the
+    leaderboard, the wall seconds of each start (start-up included) and
+    each rank's play and tournament seconds, or the error of a failed
+    world. Checks nothing: a merged
+    unit's searches concatenate other units on each rank than on one card,
+    so a bf16 forward at another batch shape may differ in its last bit
+    and change a move."""
+    import os
+    import tempfile
+
+    sys.path.insert(0, str(ROOT))
+    from alphazero_reversi_tpu_torch.kernels import build as kbuild
+    from alphazero_reversi_tpu_torch.parallel import mesh
+
+    kbuild.build(["backup_link"])  # once, before the ranks load it
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    command = [sys.executable, "-c", RANK_LAUNCHER, str(group_timeout_s),
+               "tournament"]
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        models = _tournament_models(Path(tmp) / "models")
+        for mode in TOURNAMENT_MODES:
+            base = Path(tmp) / mode
+            n_sims = (sims or {}).get(mode)
+            n_rounds = rounds[mode] if isinstance(rounds, dict) else rounds
+
+            def cfg(name: str) -> str:
+                return _tournament_config(mode, base / name,
+                                          base.with_suffix(f".{name}.json"),
+                                          n_rounds, n_sims)
+
+            one_cfg = cfg("one")
+            t0 = time.perf_counter()
+            (one_out,) = mesh.spawn_ranks(lambda r, port: command + [
+                "-c", one_cfg, "--model-dir", models], 1, 1200, env=env,
+                what=f"{mode} on one card")
+            one_s = time.perf_counter() - t0
+            one = _elo_result(base / "one")
+            by_world = {}
+            for world in worlds:
+                names = [f"w{world}_rank{r}" for r in range(world)]
+                cfgs = [cfg(name) for name in names]
+                t0 = time.perf_counter()
+                try:
+                    outs = mesh.spawn_ranks(lambda r, port: command + [
+                        "-c", cfgs[r], "--model-dir", models,
+                        "--coordinator", f"127.0.0.1:{port}",
+                        "--num-processes", str(world), "--process-id",
+                        str(r)], world, 1200, env=env,
+                        what=f"{mode} over {world} ranks")
+                except RuntimeError as e:  # reported; the next world runs
+                    by_world[world] = dict(error=str(e)[-3000:])
+                    continue
+                ranks_s = time.perf_counter() - t0
+                many = _elo_result(base / names[0])
+                differ = sum(
+                    (a["player_a"], a["player_b"], a["score_a"])
+                    != (b["player_a"], b["player_b"], b["score_a"])
+                    for a, b in zip(one["history"], many["history"]))
+                times = [_rank_times(o) for o in outs]
+                waits = [t["tournament_s"] - t["play_s"] for t in times]
+                by_world[world] = dict(
+                    wall_s=ranks_s, rank_times=times,
+                    play_s_max=max(t["play_s"] for t in times),
+                    gather_wait_s_max=max(waits),
+                    waited_past_group_timeout=(
+                        group_timeout_s > 0 and max(waits) > group_timeout_s),
+                    equal=one == many,
+                    games_differ=differ + abs(len(one["history"])
+                                              - len(many["history"])),
+                    ratings=many["ratings"],
+                    games_played=many["games_played"],
+                    rank_files={r: sorted(
+                        str(f.relative_to(base)) for f in
+                        (base / names[r]).rglob("*") if f.is_file())
+                        for r in range(world)
+                        if (base / names[r]).exists()},
+                    leaderboard_printed_by=[r for r, o in enumerate(outs)
+                                            if "ratings saved" in o])
+            report[mode] = dict(
+                rounds=n_rounds, games=len(one["history"]),
+                sims=n_sims or TOURNAMENT_MODES[mode][1][
+                    "tournament.num_simulations"],
+                group_timeout_s=group_timeout_s or None,
+                one_card=dict(wall_s=one_s, **_rank_times(one_out),
+                              ratings=one["ratings"],
+                              games_played=one["games_played"]),
+                ranks=by_world)
+    return report
+
+
 def main() -> int:
     if len(sys.argv) > 1:  # one rank of phase 18's two-rank run
         import argparse
@@ -2062,6 +2407,7 @@ def main() -> int:
         phase("bench", lambda: bench(results))
         phase("pipeline_leftovers", lambda: pipeline_leftovers(results))
         phase("multi_gpu", lambda: multi_gpu(results))
+        phase("tournament", lambda: tournament(results))
 
     kernels = [results[k] for k in ("backup_link", "round_backup",
                                     *(x[0] for x in PUCT_SHAPES))
@@ -2087,7 +2433,7 @@ def main() -> int:
         print(json.dumps({"iteration_cli": results["iteration_cli"]}))
     for name in ("default_selfplay", "default_iteration_cli",
                  "puct_cuda_vs_cpu", "host_play", "bench",
-                 "pipeline_leftovers", "multi_gpu"):
+                 "pipeline_leftovers", "multi_gpu", "tournament"):
         if name in results:
             print(json.dumps({name: results[name]}))
     if "training" in results:
