@@ -1,7 +1,8 @@
 """Build the port's native libraries from its sources at first use.
 
-* Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
-  ``nvcc`` for Hopper (``sm_90a``).
+* Each ``csrc/<name>.cu`` (``KERNELS``) has a plain C interface and is
+  compiled by ``nvcc`` for Hopper (``sm_90a``); the first load of any of
+  them builds every one not built yet, together.
 * ``native/solver.cpp`` (the exact endgame solver, host code; it includes
   ``native/rules.h``) is compiled by the host C++ compiler with the flags of
   the JAX package's ``native/Makefile``.
@@ -30,6 +31,7 @@ BUILD_DIR = PACKAGE / "kernels" / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17", "-pthread")
+KERNELS = ("backup_link", "bn_act")  # csrc/<name>.cu
 SOLVER = "solver"
 SOLVER_SOURCES = (NATIVE / "solver.cpp", NATIVE / "rules.h")
 
@@ -120,8 +122,9 @@ def build(names: Iterable[str], solver: bool = False) -> Dict[str, Path]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
-    return ctypes.CDLL(str(build([name])[name]))
+    """The built library for ``csrc/<name>.cu``, building it (and every
+    other kernel of ``KERNELS`` not built yet, in parallel) if needed."""
+    return ctypes.CDLL(str(build(KERNELS)[name]))
 
 
 @functools.lru_cache(maxsize=None)

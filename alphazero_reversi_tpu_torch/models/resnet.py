@@ -15,6 +15,10 @@ parameter names, same numerics where it matters:
   over N, H, W with the fast variance ``mean(x^2) - mean(x)^2`` clipped at
   0, normalisation by that biased variance, and running averages updated
   with momentum 0.99 (``ra = 0.99 ra + 0.01 batch``, biased variance);
+* each BatchNorm site (the BN, its ReLU and in a residual block's second
+  site the residual add) goes through ``cuda_bn.bn_act``: one launch of a
+  hand-written CUDA kernel in an eval forward on the card, the eager
+  composition in train mode and on the CPU, with the same bits either way;
 * dropout draws its mask from an explicit ``torch.Generator``, as Flax's
   ``nn.Dropout`` keeps ``x / (1 - rate)`` where a Bernoulli draw says so;
 * the head activations are flattened in NHWC order, so the Flax Dense
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
+from .cuda_bn import bn_act
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99  # Flax's convention: weight of the old running average
@@ -40,6 +45,10 @@ class _BatchNorm(nn.BatchNorm2d):
     """BatchNorm with Flax's numerics (float32). Eval mode normalises with
     the running averages; train mode with the batch's statistics, and it
     updates the running averages in place (module docstring)."""
+
+    # ``cuda_bn.bn_act``'s kernel copies this class's eval arithmetic step
+    # by step, so its eval forward on the card takes the kernel
+    BN_ACT_KERNEL = True
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=BN_EPS)
@@ -87,9 +96,8 @@ class ResBlock(nn.Module):
             self.bn1 = self.bn2 = nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return F.relu(y + x)
+        y = bn_act(self.conv1(x), self.bn1)
+        return bn_act(self.conv2(y), self.bn2, residual=x)
 
 
 class AlphaZeroNet(nn.Module):
@@ -148,13 +156,13 @@ class AlphaZeroNet(nn.Module):
         + B)`` of a batch of ``total``; the dropout mask is drawn at the
         whole batch's shape and these rows kept."""
         x = planes.permute(0, 3, 1, 2).to(self.dtype)
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
+        x = bn_act(self.stem_conv(x), self.stem_bn)
         for block in self.res:
             x = block(x)
         x = self._dropout(x, generator, rows)
-        p = F.relu(self.policy_bn(self.policy_conv(x)))
+        p = bn_act(self.policy_conv(x), self.policy_bn)
         logits = self.policy_fc(self._flatten_nhwc(p))
-        v = F.relu(self.value_bn(self.value_conv(x)))
+        v = bn_act(self.value_conv(x), self.value_bn)
         v = F.relu(self.value_fc1(self._flatten_nhwc(v)))
         v = torch.tanh(self.value_fc2(v))
         return logits, v.squeeze(-1)

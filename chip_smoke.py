@@ -21,7 +21,13 @@ Phases (each raises on failure; the script exits 1 if any failed):
    B=64 at L=4 with forced in-round duplicates), where P > 32 takes the
    kernel's stepwise path, and at the bench's multi-leaf shapes (B=1024:
    PUCT-400 at L=16, N=401, 24 levels, P=384; the tiny-net points at L=8,
-   N=33, 4 levels, P=32);
+   N=33, 4 levels, P=32); ``azr_bn_act`` (an eval BatchNorm site of the
+   net) bit for bit against the eager composition at the trunk's shapes
+   of the flagship and default self-play cells (8,192 and 16,384 rows,
+   with and without the residual) and at the heads' (C = 2 and 1 at those
+   rows), and timed at the trunk's; every later phase counts its eval
+   forwards on the card and ``azr_bn_act``'s launches, which must be one
+   a BatchNorm site of each (``bn_launches``);
 3. ``flagship_selfplay``: one flagship self-play batch
    (``configs/flagship_run.json``: 1024 games, Gumbel-32, 4 stages, tree
    reuse, 60 moves, the 5x128 bf16 ResNet with seeded random weights);
@@ -1142,6 +1148,162 @@ def check_round_kernel_puct(results: dict) -> None:
         "B=1024 N=401 levels 4-24 (6 stages) L=16, P<=384"
 
 
+BN_SHAPES = (  # (row, rows, residual): the trunk's BatchNorm sites in the
+    # flagship (8,192 rows a forward) and default (16,384) self-play cells
+    ("bn_act_c1", 8192, False), ("bn_act_c1_res", 8192, True),
+    ("bn_act_c2", 16384, False), ("bn_act_c2_res", 16384, True))
+
+
+def _issue_ms(fn, reps: int = 50) -> float:
+    """Host ms per call of ``fn`` back to back (host clock, no sync inside:
+    the wrapper's issue cost while the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def check_bn_kernel(results: dict) -> None:
+    """azr_bn_act (an eval BatchNorm site: BN, the residual add where there
+    is one, ReLU) in bf16 channels-last: bit for bit equal to the eager
+    composition on the card at the trunk's shapes of both self-play cells
+    (C = 128, with and without the residual) and at the heads' (C = 2 and
+    1, no residual, at the same rows), then timed at the trunk's. Device
+    ms: a replayed graph of 50 launches; issue ms: the wrapper's host time
+    a call; plain ms: the eager composition (device-bound); bound: the
+    input, the residual and the output once at 3.35 TB/s. The ``bn_act``
+    row gathers the launches of the later phases (``bn_launches``)."""
+    from alphazero_reversi_tpu_torch.models import cuda_bn, resnet
+
+    dev = torch.device("cuda")
+
+    def batchnorm(channels):
+        g = torch.Generator().manual_seed(channels)
+        bn = resnet._BatchNorm(channels)
+        with torch.no_grad():
+            bn.running_mean.copy_(torch.randn(channels, generator=g))
+            bn.running_var.copy_(torch.rand(channels, generator=g) + 0.1)
+            bn.weight.copy_(torch.randn(channels, generator=g))
+            bn.bias.copy_(torch.randn(channels, generator=g))
+        return bn.to(dev).eval()
+
+    def activations(rows, channels=128):
+        return torch.randn(rows, channels, 8, 8, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def exact(x, bn, res, name):
+        got = cuda_bn.bn_act(x, bn, res)
+        want = cuda_bn.bn_act_reference(x, bn, res)
+        torch.cuda.synchronize()
+        if got.stride() != want.stride() or not torch.equal(
+                got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"bn_act kernel != eager at {name}")
+
+    bn = batchnorm(128)
+    with torch.no_grad():
+        for name, rows, residual in BN_SHAPES:
+            x = activations(rows)
+            res = activations(rows) if residual else None
+            exact(x, bn, res, name)
+            nbytes = x.numel() * 2 * (3 if residual else 2) + 4 * 128 * 4
+            results[name] = dict(
+                name=name, route="cuda",
+                source="alphazero_reversi_tpu_torch/csrc/bn_act.cu",
+                replaces="none (eager BatchNorm + ReLU + residual add)",
+                entry="azr_bn_act", main_path=True,
+                shape=f"{rows}x128x8x8 bf16 channels-last"
+                + (" + residual" if residual else ""), exact_card=True,
+                ms=_graph_ms(lambda: cuda_bn.bn_act(x, bn, res),
+                             launches=50, replays=2),
+                issue_ms=_issue_ms(lambda: cuda_bn.bn_act(x, bn, res)),
+                plain_ms=_time_ms(
+                    lambda: cuda_bn.bn_act_reference(x, bn, res), 10),
+                bound_ms=_bound_ms(nbytes, 0), bound_by="bytes",
+                bound_bytes=nbytes, launches_by_path={})
+            results[name]["bandwidth_share"] = (results[name]["bound_ms"]
+                                                / results[name]["ms"])
+            del x, res
+        heads = []
+        for channels in (2, 1):  # the policy and value heads
+            bn = batchnorm(channels)
+            for rows in sorted({rows for _, rows, _ in BN_SHAPES}):
+                exact(activations(rows, channels), bn, None,
+                      f"{rows}x{channels}x8x8")
+                heads.append(f"{rows}x{channels}x8x8")
+    results["bn_act"] = dict(
+        name="bn_act", route="cuda",
+        source="alphazero_reversi_tpu_torch/csrc/bn_act.cu",
+        entry="azr_bn_act", main_path=True,
+        shape="every eval BatchNorm site (2 x blocks + 3 a forward)",
+        exact_head_shapes=heads, launches_by_path={}, forwards_by_path={},
+        launches_by_shape={})
+
+
+@contextlib.contextmanager
+def bn_launches(results: dict, path: str):
+    """Count, over the body, the eval forwards on the card whose BatchNorm
+    sites take ``azr_bn_act`` (``cuda_bn.bn_act``'s dispatch: a
+    ``_BatchNorm`` net in eval mode, a CUDA input, autograd off) and the
+    kernel's launches (``cuda_bn.LAUNCHES``, and by shape at the net's
+    sites). File them under ``path`` in the ``bn_act`` row and, at a
+    trunk row's shape, in that row; raise unless each such forward
+    launched the kernel once at each of its 2 x blocks + 3 sites (13 in
+    the 5x128 net) and nothing else launched it."""
+    from alphazero_reversi_tpu_torch.models import cuda_bn, resnet
+
+    real_forward, real_bn_act = resnet.AlphaZeroNet.forward, resnet.bn_act
+    counts = {"forwards": 0, "sites": 0}
+    by_shape: dict = {}
+
+    def forward(net, planes, *args, **kwargs):
+        if (not net.training and planes.is_cuda
+                and not torch.is_grad_enabled()
+                and isinstance(net.stem_bn, resnet._BatchNorm)):
+            counts["forwards"] += 1
+            counts["sites"] += 2 * len(net.res) + 3
+        return real_forward(net, planes, *args, **kwargs)
+
+    def bn_act(x, bn, residual=None):
+        before = cuda_bn.LAUNCHES
+        out = real_bn_act(x, bn, residual)
+        if cuda_bn.LAUNCHES != before:
+            key = (f"{x.shape[0]}x{x.shape[1]}x{x.shape[2]}x{x.shape[3]} "
+                   f"{str(x.dtype).split('.')[-1]}"
+                   + (" + residual" if residual is not None else ""))
+            by_shape[key] = by_shape.get(key, 0) + cuda_bn.LAUNCHES - before
+        return out
+
+    resnet.AlphaZeroNet.forward, resnet.bn_act = forward, bn_act
+    cuda_bn.LAUNCHES = 0
+    try:
+        yield
+    finally:
+        resnet.AlphaZeroNet.forward, resnet.bn_act = real_forward, \
+            real_bn_act
+    launches = cuda_bn.LAUNCHES
+    if counts["forwards"]:
+        row = results["bn_act"]
+        row["launches_by_path"][path] = launches
+        row["forwards_by_path"][path] = counts["forwards"]
+        for key, n in by_shape.items():
+            row["launches_by_shape"][key] = \
+                row["launches_by_shape"].get(key, 0) + n
+        for name, rows, residual in BN_SHAPES:
+            n = by_shape.get(f"{rows}x128x8x8 bfloat16"
+                             + (" + residual" if residual else ""), 0)
+            if n:
+                results[name]["launches_by_path"][path] = n
+    if launches != counts["sites"] or sum(by_shape.values()) != launches:
+        raise AssertionError(
+            f"azr_bn_act launched {launches} times ({sum(by_shape.values())}"
+            f" at the net's sites) in {counts['forwards']} eval forwards on "
+            f"the card with {counts['sites']} BatchNorm sites")
+
+
 def default_selfplay(results: dict) -> None:
     """``configs/default_config.json`` as written: 1024 games, PUCT-400,
     c_puct 1, Dirichlet alpha 0.03 / epsilon 0.25, the temperature
@@ -2258,7 +2420,7 @@ def tournament_ranks(*worlds: int, rounds=2,
     from alphazero_reversi_tpu_torch.kernels import build as kbuild
     from alphazero_reversi_tpu_torch.parallel import mesh
 
-    kbuild.build(["backup_link"])  # once, before the ranks load it
+    kbuild.build(kbuild.KERNELS)  # once, before the ranks load it
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     command = [sys.executable, "-c", RANK_LAUNCHER, str(group_timeout_s),
                "tournament"]
@@ -2363,7 +2525,11 @@ def main() -> int:
     def phase(name, fn):
         t0 = time.perf_counter()
         try:
-            fn()
+            if "bn_act" in results:  # after kernel_check
+                with bn_launches(results, name):
+                    fn()
+            else:
+                fn()
         except Exception:  # report every phase, then fail the run
             failed.append(name)
             traceback.print_exc()
@@ -2373,7 +2539,7 @@ def main() -> int:
     def build():
         from alphazero_reversi_tpu_torch.kernels import build as kbuild
         t0 = time.perf_counter()
-        kbuild.build(["backup_link"], solver=True)
+        kbuild.build(kbuild.KERNELS, solver=True)
         results["build_s"] = time.perf_counter() - t0
         print(f"build_s {results['build_s']:.2f}", flush=True)
 
@@ -2381,7 +2547,8 @@ def main() -> int:
     if not failed:
         phase("kernel_check", lambda: (check_backup_kernel(results),
                                        check_round_kernel(results),
-                                       check_round_kernel_puct(results)))
+                                       check_round_kernel_puct(results),
+                                       check_bn_kernel(results)))
     if not failed:
         phase("flagship_selfplay", lambda: flagship_selfplay(results, carry))
         if "traj" in carry:
@@ -2410,7 +2577,8 @@ def main() -> int:
         phase("tournament", lambda: tournament(results))
 
     kernels = [results[k] for k in ("backup_link", "round_backup",
-                                    *(x[0] for x in PUCT_SHAPES))
+                                    *(x[0] for x in PUCT_SHAPES),
+                                    "bn_act", *(x[0] for x in BN_SHAPES))
                if k in results]
     for k in kernels:  # the main paths at the row's shape; launches at
         # other shapes stand apart in ``launches_other_shapes``

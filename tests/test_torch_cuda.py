@@ -1,6 +1,7 @@
 """The port on a CUDA card: the backup+link kernel's two entry points
 against their plain versions (at the flagship's, the gate's and the PUCT
-default config's shapes); the env, a Gumbel and a PUCT search, the gate,
+default config's shapes); the eval BatchNorm kernel against the eager
+composition, alone, in the net's forward and under a CUDA graph; the env, a Gumbel and a PUCT search, the gate,
 the replay buffer and the learner on the card against the same code on the
 CPU; and SGD steps that never sync with the host. Every test here needs a
 card and skips without one.
@@ -468,3 +469,174 @@ def test_background_save_on_card_holds_the_state_at_save(card, tmp_path):
     for k in ("planes", "policy", "value", "cursor", "size"):
         x, y = got["replay"][k], want["replay"][k]
         assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+
+
+def _bn(channels: int, device, seed: int):
+    """A BatchNorm of the net with random running statistics and affine
+    parameters, in eval mode, with planted edge cases: channel 0 gets weight
+    0 and bias -0.0 (its outputs are signed zeros), channel 1 (where there
+    is one) a zero variance, and the last channel a huge weight."""
+    g = torch.Generator().manual_seed(seed)
+    bn = resnet._BatchNorm(channels)
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.randn(channels, generator=g))
+        bn.running_var.copy_(torch.rand(channels, generator=g) * 3)
+        bn.weight.copy_(torch.randn(channels, generator=g))
+        bn.bias.copy_(torch.randn(channels, generator=g))
+        bn.weight[0], bn.bias[0] = 0.0, -0.0
+        if channels > 1:
+            bn.running_var[1] = 0.0
+            bn.weight[-1] = 1e30
+    return bn.to(device).eval()
+
+
+def _bn_input(rows: int, channels: int, dtype, layout: str, device,
+              seed: int):
+    """[rows, C, 8, 8] normal values in the given memory layout, with NaN,
+    +-inf, -0.0 and values near the dtype's largest planted."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, channels, 8, 8, generator=g) * 4
+    flat = x.view(-1)
+    big = torch.finfo(dtype).max
+    for i, v in enumerate((float("nan"), float("inf"), -float("inf"), -0.0,
+                           big, -big, big / 2)):
+        flat[i * 997::7919] = v
+    x = x.to(device=device, dtype=dtype)
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    return x.contiguous(memory_format=fmt)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return (a.stride() == b.stride()
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("residual", [False, True], ids=["bn", "bn_res"])
+@pytest.mark.parametrize("rows,channels", [(8192, 128), (16384, 128),
+                                           (16384, 2), (16384, 1)])
+def test_bn_act_kernel_matches_plain_version(card, rows, channels, residual,
+                                             dtype, layout):
+    """azr_bn_act at the trunk's shapes of the flagship (8,192 rows) and
+    default (16,384) self-play cells and at the heads' C = 2 and 1: the
+    eager composition's bits (NaN, signed zeros, infinities and overflow
+    included) in the input's memory layout, one launch a call."""
+    from alphazero_reversi_tpu_torch.models import cuda_bn
+
+    bn = _bn(channels, card, channels)
+    x = _bn_input(rows, channels, dtype, layout, card, 1)
+    res = _bn_input(rows, channels, dtype, layout, card, 2) \
+        if residual else None
+    with torch.no_grad():
+        before = cuda_bn.LAUNCHES
+        got = cuda_bn.bn_act(x, bn, res)
+        assert cuda_bn.LAUNCHES == before + 1
+        want = cuda_bn.bn_act_reference(x, bn, res)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    assert torch.isnan(got).any() and (got == 0).any()
+
+
+def _flagship_net(card):
+    """The 5x128 bf16 BN net with random weights and running statistics."""
+    torch.manual_seed(11)
+    net = resnet.build_network(ModelConfig())
+    with torch.no_grad():
+        for name, buf in net.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0, 0.5)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 2.0)
+        for name, p in net.named_parameters():
+            if "bn" in name:
+                p.normal_(0.5 if name.endswith("weight") else 0.0, 0.3)
+    return net.to(card)
+
+
+def _random_planes(rng, rows: int, card) -> torch.Tensor:
+    """[rows, 8, 8, 3] float32 planes of random 0/1 cells."""
+    return torch.from_numpy(rng.integers(0, 2, (rows, 8, 8, 3)).astype(
+        np.float32)).to(card)
+
+
+@pytest.mark.parametrize("rows", [1, 1024])
+def test_eval_forward_takes_the_bn_kernel_bit_for_bit(card, rows,
+                                                      monkeypatch):
+    """A flagship-width eval forward launches azr_bn_act at its 13
+    BatchNorm sites and gives the forward through the plain versions bit
+    for bit (1,024 rows as the self-play's; one row as ``analyze``'s)."""
+    from alphazero_reversi_tpu_torch.models import cuda_bn
+
+    net = _flagship_net(card)
+    planes = _random_planes(np.random.default_rng(rows), rows, card)
+    before = cuda_bn.LAUNCHES
+    got = resnet.apply_eval(net, planes)
+    assert cuda_bn.LAUNCHES == before + 13
+    monkeypatch.setattr(resnet, "bn_act", cuda_bn.bn_act_reference)
+    want = resnet.apply_eval(net, planes)
+    torch.cuda.synchronize()
+    assert cuda_bn.LAUNCHES == before + 13
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_eval_forward_graph_replay_matches_eager(card):
+    """An eval forward captured in a CUDA graph (13 azr_bn_act launches
+    among the convs) and replayed on new planes gives the eager forward's
+    bits."""
+    from alphazero_reversi_tpu_torch.models import cuda_bn
+
+    net = _flagship_net(card)
+    rng = np.random.default_rng(5)
+    static = _random_planes(rng, 256, card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        resnet.apply_eval(net, static)  # warm-up: cuDNN plans, the library
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = cuda_bn.LAUNCHES
+    with torch.cuda.graph(graph):
+        out = resnet.apply_eval(net, static)
+    assert cuda_bn.LAUNCHES == before + 13
+    fresh = _random_planes(rng, 256, card)
+    static.copy_(fresh)
+    graph.replay()
+    want = resnet.apply_eval(net, fresh)
+    torch.cuda.synchronize()
+    for g, w in zip(out, want):
+        assert torch.equal(g, w)
+
+
+def test_train_forward_keeps_the_eager_bn(card):
+    """Train mode (``apply_train``: batch statistics, a backward pass)
+    never launches azr_bn_act."""
+    from alphazero_reversi_tpu_torch.models import cuda_bn
+
+    net = _flagship_net(card).train()
+    planes = env.canonical_planes(env.initial_state((64,))).to(card)
+    before = cuda_bn.LAUNCHES
+    (logits, value), _ = resnet.apply_train(net, planes)
+    (logits.sum() + value.sum()).backward()
+    torch.cuda.synchronize()
+    assert cuda_bn.LAUNCHES == before
+
+
+def test_stock_batchnorm_keeps_its_own_arithmetic(card):
+    """A stock ``nn.BatchNorm2d`` in eval mode (``F.batch_norm``, which
+    rounds unlike the net's BatchNorm) takes the plain version: no launch,
+    and its own output."""
+    from alphazero_reversi_tpu_torch.models import cuda_bn
+
+    bn = torch.nn.BatchNorm2d(128).to(card).eval()
+    x = _bn_input(1024, 128, torch.bfloat16, "channels_last", card, 3)
+    with torch.no_grad():
+        before = cuda_bn.LAUNCHES
+        got = cuda_bn.bn_act(x, bn)
+        assert cuda_bn.LAUNCHES == before
+        want = torch.relu(bn(x))
+    assert _same_bits(got, want)

@@ -72,3 +72,55 @@ def test_masked_policy_matches_jax(seed):
     np.testing.assert_allclose(got, want, atol=1e-6)
     np.testing.assert_array_equal(got[0], np.full(65, 1 / 65, np.float32))
     assert (got[2:][~legal[2:]] == 0).all()
+
+
+def _old_eval_forward(net, planes):
+    """The eval forward as the net wrote it before its BatchNorm sites went
+    through ``cuda_bn.bn_act``: float32 BN on the running averages, then
+    ReLU, and the residual add between them in a block's second site."""
+    import torch.nn.functional as F
+
+    def bn(m, x):
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(m.running_var + m.eps) * m.weight
+        y = (x.float() - m.running_mean.view(shape)) * mul.view(shape)
+        return (y + m.bias.view(shape)).to(x.dtype)
+
+    x = planes.permute(0, 3, 1, 2).to(net.dtype)
+    x = F.relu(bn(net.stem_bn, net.stem_conv(x)))
+    for block in net.res:
+        y = F.relu(bn(block.bn1, block.conv1(x)))
+        x = F.relu(bn(block.bn2, block.conv2(y)) + x)
+    p = F.relu(bn(net.policy_bn, net.policy_conv(x)))
+    logits = net.policy_fc(net._flatten_nhwc(p))
+    v = F.relu(bn(net.value_bn, net.value_conv(x)))
+    v = F.relu(net.value_fc1(net._flatten_nhwc(v)))
+    return logits, torch.tanh(net.value_fc2(v)).squeeze(-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eval_forward_keeps_the_old_composition(dtype):
+    """On the CPU the BatchNorm sites run the eager composition: the eval
+    forward gives the old forward's bits, and no kernel is launched."""
+    from alphazero_reversi_tpu_torch.models import cuda_bn
+
+    torch.manual_seed(3)
+    net = tresnet.build_network(tresnet.ModelConfig(
+        num_res_blocks=2, num_filters=8, value_head_hidden_size=16,
+        compute_dtype=dtype))
+    for name, buf in net.named_buffers():
+        if name.endswith("running_mean"):
+            buf.copy_(torch.randn_like(buf))
+        elif name.endswith("running_var"):
+            buf.copy_(torch.rand_like(buf) + 0.1)
+    for name, p in net.named_parameters():
+        if "bn" in name:
+            p.data.copy_(torch.randn_like(p))
+    planes = torch.from_numpy(_planes(6, 4))
+    before = cuda_bn.LAUNCHES
+    got = tresnet.apply_eval(net, planes)
+    with torch.no_grad():
+        want = _old_eval_forward(net, planes)
+    assert cuda_bn.LAUNCHES == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
